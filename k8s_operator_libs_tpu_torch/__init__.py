@@ -1,0 +1,27 @@
+"""PyTorch/CUDA port of tpu-operator-libs, for NVIDIA H100 GPUs.
+
+It grows slice by slice beside the JAX package ``k8s_operator_libs_tpu``,
+which stays the reference it is tested against.  It imports ``torch``,
+numpy and the standard library, never ``jax`` and nothing of the JAX
+package.  This slice ports the node health battery and the report and
+prober layer around it (:mod:`.health`), with hand-written CUDA kernels
+for the HBM stream and the verification reductions (:mod:`.kernels`).
+"""
+
+from k8s_operator_libs_tpu_torch.health import (
+    HEALTH_CHECKS_ALL,
+    CheckResult,
+    HealthReport,
+    LocalDeviceProber,
+    NodeReportProber,
+    run_host_probe,
+)
+
+__all__ = [
+    "CheckResult",
+    "HEALTH_CHECKS_ALL",
+    "HealthReport",
+    "LocalDeviceProber",
+    "NodeReportProber",
+    "run_host_probe",
+]

@@ -1,0 +1,210 @@
+"""The port's probers and agent driving the JAX package's upgrade engine.
+
+The engine (``ClusterUpgradeStateManager`` on a ``FakeCluster``) is the
+same code either way; only the prober behind its validation gate
+changes.  A roll gated by the port's ``LocalDeviceProber`` must complete
+and walk every node through the same distinct states as one gated by the
+JAX package's, and the two ``NodeReportProber``s must give the same
+verdict and detail for the reports the port's ``HealthAgent`` publishes.
+"""
+
+from __future__ import annotations
+
+import time
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from k8s_operator_libs_tpu.api import DrainSpec, TPUUpgradePolicySpec  # noqa: E402
+from k8s_operator_libs_tpu.health import (  # noqa: E402
+    LocalDeviceProber as JaxLocalProber,
+    NodeReportProber as JaxReportProber,
+)
+from k8s_operator_libs_tpu.health import fused as jfused  # noqa: E402
+from k8s_operator_libs_tpu.k8s import FakeCluster  # noqa: E402
+from k8s_operator_libs_tpu.topology.slices import SliceInfo  # noqa: E402
+from k8s_operator_libs_tpu.upgrade import (  # noqa: E402
+    ClusterUpgradeStateManager,
+    UpgradeKeys,
+    UpgradeState,
+)
+from k8s_operator_libs_tpu.upgrade.types import (  # noqa: E402
+    NodeUpgradeState,
+    UpgradeGroup,
+)
+from k8s_operator_libs_tpu_torch.health import (  # noqa: E402
+    LocalDeviceProber as PortLocalProber,
+    NodeReportProber as PortReportProber,
+)
+from k8s_operator_libs_tpu_torch.health import fused as tfused  # noqa: E402
+from k8s_operator_libs_tpu_torch.health.agent import HealthAgent  # noqa: E402
+from k8s_operator_libs_tpu_torch.upgrade import UpgradeKeys as PortKeys  # noqa: E402
+from tests.fixtures import (  # noqa: E402
+    DRIVER_LABELS,
+    NAMESPACE,
+    ClusterFixture,
+    make_node,
+)
+
+KEYS = UpgradeKeys()
+CPU = torch.device("cpu")
+SMALL = dict(matmul_n=128, hbm_mib=1)
+# The JAX battery also sizes its all-reduce ramp; the port fails its
+# collectives closed and has no such knob.
+JAX_SMALL = dict(SMALL, allreduce_elems=128)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # Tier-1 runs six pytest workers at once; torch's default of one
+    # intra-op thread per core oversubscribes the host and turns the
+    # small CPU batteries here from milliseconds into seconds.
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture(autouse=True)
+def _fresh_caches():
+    jfused.reset_battery_cache()
+    tfused.reset_battery_cache()
+    yield
+
+
+def _collapse(states: list[str]) -> list[str]:
+    out: list[str] = []
+    for s in states:
+        if not out or out[-1] != s:
+            out.append(s)
+    return out
+
+
+def _roll(prober) -> dict[str, list[str]]:
+    """Roll a 2-host slice and a plain node from h1 to h2 behind
+    ``prober``; returns each node's sequence of distinct states."""
+    cluster = FakeCluster()
+    fx = ClusterFixture(cluster, KEYS)
+    ds = fx.daemon_set(hash_suffix="h1", revision=1)
+    nodes = fx.tpu_slice("pool-a", hosts=2) + [fx.node(name="plain-0")]
+    for n in nodes:
+        fx.driver_pod(n, ds, hash_suffix="h1")
+    fx.bump_daemon_set_template(ds, "h2", revision=2)
+    fx.auto_recreate_driver_pods(ds, "h2")
+    mgr = ClusterUpgradeStateManager(
+        cluster, keys=KEYS, poll_interval_s=0.005, poll_timeout_s=2.0
+    ).with_validation_enabled(prober)
+    policy = TPUUpgradePolicySpec(
+        auto_upgrade=True,
+        max_parallel_upgrades=1,
+        drain_spec=DrainSpec(enable=True, timeout_second=5),
+    )
+    seen: dict[str, list[str]] = {n.name: [] for n in nodes}
+    for _ in range(80):
+        mgr.apply_state(mgr.build_state(NAMESPACE, DRIVER_LABELS), policy)
+        assert mgr.wait_for_async_work(30.0)
+        for name, states in seen.items():
+            node = cluster.get_node(name, cached=False)
+            states.append(node.labels.get(KEYS.state_label, ""))
+        if all(s[-1] == UpgradeState.DONE.value for s in seen.values()):
+            break
+    else:
+        raise AssertionError(f"roll did not converge: {seen}")
+    return {name: _collapse(states) for name, states in seen.items()}
+
+
+def test_roll_gated_by_port_prober_walks_the_same_states(cpu_devices):
+    port = _roll(PortLocalProber(devices=[CPU], **SMALL))
+    ref = _roll(JaxLocalProber(devices=cpu_devices[:1], **JAX_SMALL))
+    assert port == ref
+    for states in port.values():
+        assert UpgradeState.VALIDATION_REQUIRED.value in states
+        assert states[-1] == UpgradeState.DONE.value
+
+
+def _group(nodes, slice_info=None, ds=None):
+    return UpgradeGroup(
+        id=slice_info.slice_id if slice_info else nodes[0].name,
+        members=[NodeUpgradeState(node=n, driver_daemon_set=ds) for n in nodes],
+        slice_info=slice_info,
+    )
+
+
+@pytest.mark.parametrize("expected_devices", [0, 16])
+def test_local_probers_agree(cpu_devices, expected_devices):
+    group = _group([make_node("n0")])
+    port = PortLocalProber(
+        devices=[CPU], expected_devices=expected_devices, **SMALL
+    ).probe(group)
+    ref = JaxLocalProber(
+        devices=cpu_devices[:1], expected_devices=expected_devices,
+        **JAX_SMALL,
+    ).probe(group)
+    assert (port.healthy, port.detail) == (ref.healthy, ref.detail)
+    assert port.healthy == (expected_devices == 0)
+    assert set(port.telemetry["n0"]) == set(ref.telemetry["n0"])
+
+
+class _DS:
+    """Stands in for the driver DaemonSet the revision resolver reads."""
+
+
+def _published(case: str):
+    """A one-node group whose annotation the port's agent wrote, for
+    ``case``; returns (group, report-prober kwargs)."""
+    cluster = FakeCluster()
+    cluster.create_node(make_node("host-0"))
+    agent = HealthAgent(
+        cluster, "host-0", PortKeys(),
+        driver_revision="old" if case == "wrong_revision" else "rev-1",
+        devices=[CPU, CPU] if case == "failed_check" else [CPU],
+        **SMALL,
+    )
+    kwargs: dict = {}
+    slice_info = None
+    ds = None
+    if case == "stale":
+        report = agent.probe_once()
+        report.timestamp = time.time() - 10_000.2
+        agent.publish(report)
+        kwargs["max_report_age_s"] = 60
+    elif case == "malformed":
+        cluster.patch_node_annotations(
+            "host-0", {KEYS.health_report_annotation: "{bad"}
+        )
+    elif case != "missing":
+        agent.run_once()
+    if case == "wrong_revision":
+        ds = _DS()
+        kwargs["revision_resolver"] = lambda _ds: "new"
+    if case == "chip_count":
+        # A 4-chip-per-host slice; the CPU agent sees one device.
+        slice_info = SliceInfo(
+            slice_id="pool-a", accelerator="tpu-v5p-slice",
+            topology="2x2x1", expected_hosts=1,
+        )
+    node = cluster.get_node("host-0", cached=False)
+    return _group([node], slice_info, ds), kwargs
+
+
+@pytest.mark.parametrize(
+    "case, healthy, needle",
+    [
+        ("healthy", True, "all 1 host report(s) healthy"),
+        ("missing", False, "no health report from node host-0"),
+        ("stale", False, "stale"),
+        ("wrong_revision", False, "revision old, want new"),
+        ("failed_check", False, "ici_allreduce: 2 devices"),
+        ("chip_count", False, "host enumerates 1 chips, expected 4"),
+        ("malformed", False, "malformed health report"),
+    ],
+)
+def test_report_probers_agree_on_agent_reports(case, healthy, needle):
+    group, kwargs = _published(case)
+    port = PortReportProber(PortKeys(), **kwargs).probe(group)
+    ref = JaxReportProber(KEYS, **kwargs).probe(group)
+    assert (port.healthy, port.detail) == (ref.healthy, ref.detail)
+    assert port.telemetry == ref.telemetry
+    assert port.healthy is healthy
+    assert needle in port.detail

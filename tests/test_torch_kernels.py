@@ -1,0 +1,165 @@
+"""The battery's kernels: plain versions against numpy, wrapper checks,
+and (on a CUDA card only) each kernel against its plain version.
+
+Tolerance is exact throughout: an fp32 add, a min, a max and an absolute
+difference round the same way in numpy and PyTorch, and the kernels
+compute the same operations.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from k8s_operator_libs_tpu_torch.kernels import (  # noqa: E402
+    build,
+    launch_counts,
+    stream_increment_,
+    stream_increment_plain_,
+    verify_stats,
+    verify_stats_plain,
+)
+
+SIZES = [1, 7, 4096, 1_000_003]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # Tier-1 runs six pytest workers at once; torch's default of one
+    # intra-op thread per core oversubscribes the host and slows the
+    # CPU reductions here for every worker.
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _numpy_stats(a: np.ndarray, center: float) -> np.ndarray:
+    a = a.astype(np.float32)
+    return np.array(
+        [a.min(), a.max(), np.abs(a - np.float32(center)).max()],
+        dtype=np.float32,
+    )
+
+
+def _same(got: np.ndarray, want: np.ndarray) -> None:
+    np.testing.assert_array_equal(got, want)  # NaN == NaN here
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_stream_increment_cpu_matches_numpy(n):
+    host = np.random.default_rng(n).standard_normal(n).astype(np.float32)
+    x = torch.from_numpy(host.copy())
+    before = launch_counts()
+    for _ in range(3):
+        assert stream_increment_(x) is x  # in place
+    _same(x.numpy(), host + np.float32(1) + np.float32(1) + np.float32(1))
+    # The CPU path is the plain version: no kernel launch is counted.
+    assert launch_counts() == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("center", [0.0, 0.5])
+def test_verify_stats_cpu_matches_numpy(n, dtype, center):
+    host = np.random.default_rng(n).standard_normal(n).astype(np.float32)
+    x = torch.from_numpy(host).to(getattr(torch, dtype))
+    want = _numpy_stats(x.float().numpy(), center)
+    got = verify_stats(x, center)
+    assert got.dtype == torch.float32 and got.shape == (3,)
+    _same(got.numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("where", [0, 3, 1_000_002])
+def test_verify_stats_propagates_nan(dtype, where):
+    x = torch.full((1_000_003,), 0.5).to(getattr(torch, dtype))
+    x[where] = float("nan")
+    assert torch.isnan(verify_stats(x, 0.5)).all()
+
+
+def test_verify_stats_seeded_quarter():
+    c = torch.full((128, 128), 0.5, dtype=torch.bfloat16)
+    c[17, 33] = 0.25
+    assert verify_stats(c, 0.5).tolist() == [0.25, 0.5, 0.25]
+
+
+def test_stream_increment_plain_counts_passes():
+    x = torch.zeros(1_000_003)
+    for _ in range(8):
+        stream_increment_plain_(x)
+    assert verify_stats_plain(x, 0.0).tolist() == [8.0, 8.0, 8.0]
+
+
+@pytest.mark.parametrize(
+    "fn, bad",
+    [
+        (stream_increment_, lambda: torch.zeros(8, dtype=torch.float64)),
+        (stream_increment_, lambda: torch.zeros(8, dtype=torch.bfloat16)),
+        (verify_stats, lambda: torch.zeros(8, dtype=torch.float16)),
+        (verify_stats, lambda: torch.zeros(8, dtype=torch.int32)),
+    ],
+)
+def test_wrappers_reject_wrong_dtype(fn, bad):
+    with pytest.raises(TypeError):
+        fn(bad()) if fn is stream_increment_ else fn(bad(), 0.0)
+
+
+@pytest.mark.parametrize(
+    "bad",
+    [
+        lambda: torch.zeros(16)[::2],
+        lambda: torch.zeros(4, 4).t(),
+        lambda: torch.zeros(0),
+    ],
+    ids=["strided", "transposed", "empty"],
+)
+@pytest.mark.parametrize("which", ["stream_increment_", "verify_stats"])
+def test_wrappers_reject_noncontiguous_and_empty(bad, which):
+    with pytest.raises(ValueError):
+        if which == "stream_increment_":
+            stream_increment_(bad())
+        else:
+            verify_stats(bad(), 0.0)
+
+
+def test_build_targets_sm90a_and_binds_every_entry_point():
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    src = build.SOURCE.read_text()
+    for symbol in (
+        "battery_stream_increment",
+        "battery_verify_stats_f32",
+        "battery_verify_stats_bf16",
+        "battery_error_string",
+    ):
+        assert f"{symbol}(" in src
+    # The build writes into a directory git ignores.
+    ignored = (build.BUILD_DIR.parents[1] / ".gitignore").read_text()
+    assert "build/torch_kernels/" in ignored.split()
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_versions_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    for n, off in [(1 << 26, 0), (1_000_003, 0), (1_000_003, 1), (5, 3)]:
+        x = torch.randn(n + off, device=dev, generator=gen)[off:]
+        y = x.clone()
+        for _ in range(3):
+            stream_increment_(x)
+            stream_increment_plain_(y)
+        assert torch.equal(x, y)
+        for dtype in (torch.float32, torch.bfloat16):
+            t = x.to(dtype)
+            torch.testing.assert_close(
+                verify_stats(t, 0.5), verify_stats_plain(t, 0.5),
+                rtol=0, atol=0, equal_nan=True,
+            )
+    c = torch.full((4096, 4096), 0.5, dtype=torch.bfloat16, device=dev)
+    c[5, 7] = float("nan")
+    assert torch.isnan(verify_stats(c, 0.5)).all()
