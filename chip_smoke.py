@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's health battery on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
@@ -9,27 +9,45 @@ It imports the port (``k8s_operator_libs_tpu_torch``) and nothing of JAX.
 Phases:
 
 1. the device: name, count, and ``nvidia-smi`` name and power limit;
-2. build the hand-written kernels from ``kernels/csrc`` with nvcc;
-3. each kernel against its plain PyTorch version on the card, exactly,
-   at the main path's shapes and at odd, unaligned, 0.25- and NaN-seeded
-   inputs, with CUDA-event times beside the bound and one library call;
-   then the fused battery at a small size on the card against the CPU;
+2. build the hand-written kernels from ``kernels/csrc`` with nvcc, one
+   process per source, all at once;
+3. each kernel against its plain PyTorch version on the card: K1 and K2
+   exactly, at the main path's shapes and at odd, unaligned, 0.25- and
+   NaN-seeded inputs; K3 within stated tolerances at every shape the
+   ring paths give it (shards before, on and after the diagonal, and
+   each path's full reference), the canary's attention shape, odd
+   shapes, non-causal and wholly masked blocks; the ring on the card
+   against the plain version's full attention; CUDA-event times beside the
+   bound and one library call; then the fused battery at a small size on
+   the card against the CPU;
 4. the unfused battery at production size (n=4096 bf16, 1 GiB stream);
 5. the fused battery twice (a warm-up-cache miss, then a hit);
 6. the node agent publishing a report, which the port's NodeReportProber
-   accepts, and the LocalDeviceProber.
+   accepts, and the LocalDeviceProber;
+7. ring attention on the card: the deep probe over an 8-member ring on
+   the one card (S 1024), the soak at S 4096, the elastic ring (a round,
+   exclude, round, rejoin, round) and the battery with ``deep=True`` on
+   one device, where the deep check is vacuous as in the JAX package;
+8. the canary at the bench's width (103 M parameters) for 3 warm-up and
+   20 timed steps, its throughput and sustained device step time; and
+   the small canary on the card against the CPU with the same weights
+   and batches.
 
-Kernel launch counts are zeroed just before each path of phases 4-6
-(unfused, fused cold, fused warm, agent, local prober) and read just
-after it: every kernel must have been launched on every path, and no
-path may have fallen back from the fused battery.  Any failure exits
-non-zero and prints no result; so does a machine without a CUDA device.  The last line of standard output is one JSON object,
+Kernel launch counts are zeroed just before each path of phases 4-8
+(unfused, fused cold, fused warm, agent, local prober, the ring paths,
+the battery with the deep flag, the canary) and read just after it: each
+path names the kernels it must launch (K1 and K2 on the battery paths,
+K3 on the ring paths), and no path may have fallen back from the fused
+battery.  Any failure exits non-zero and prints no result; so does a
+machine without a CUDA device.  The last line of standard output is one
+JSON object,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -41,8 +59,36 @@ HERE = Path(__file__).resolve().parent
 # operations side of the elementwise kernels' bound (the bytes side,
 # from the card's HBM rate, is the larger one for both).
 FP32_PEAK_TFLOPS = 67.0
+# Dense bf16 tensor cores, the operations side of K3's bound.
+BF16_PEAK_TFLOPS = 989.0
 PROD = dict(matmul_n=4096, hbm_mib=1024)
 SMALL = dict(matmul_n=128, hbm_mib=1)
+# K3 against its plain version, |kernel - plain|.  Both round q, k, p and
+# v to bf16 and accumulate in fp32; the sums run in another order, so the
+# scores differ by a few fp32 ulps.  m: 1e-4 absolute (|s| < 10).  l:
+# 1e-4 relative.  num: 5e-2 absolute, the ring's own contract: a score
+# that moves by an ulp can round p to the neighbouring bf16 value, which
+# moves num by one bf16 step of p (at most 2^-8 p) times |v| (< 5 here).
+K3_M_ATOL = 1e-4
+K3_L_RTOL = 1e-4
+K3_NUM_ATOL = 5e-2
+RING_ATOL = 5e-2
+BENCH_CANARY = dict(vocab=1024, d_model=1024, n_heads=16, n_layers=8,
+                    d_ff=4096, seq_len=512, batch=32)
+TINY_CANARY = dict(vocab=64, d_model=64, n_heads=4, n_layers=2, d_ff=128,
+                   seq_len=16, batch=8)
+# Card against CPU on the small canary, each step's loss (about 4.7).
+# The first loss comes from identical weights through the forward pass
+# alone, where the card's TF32 products of bf16-rounded operands are
+# exact: 1e-4 absolute (fp32 sums in another order, rare bf16 flips).
+# Later losses: 1e-3 absolute.  In the backward pass TF32 rounds the
+# fp32 gradient operand (2^-11) before the product's bf16 rounding
+# (2^-8), and Adam moves a parameter by about lr whatever its gradient's
+# size, so a near-zero gradient whose sign differs moves it by 2 lr; the
+# CPU tests hold the port to JAX at 1e-3 as well.
+TINY_FIRST_LOSS_ATOL = 1e-4
+TINY_LOSS_ATOL = 1e-3
+CANARY_TIMED_STEPS = 20
 
 
 def require(cond: bool, msg: str) -> None:
@@ -61,6 +107,9 @@ def nvidia_smi_name_power() -> str:
 
 def main() -> int:
     import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print(
@@ -69,13 +118,18 @@ def main() -> int:
         )
         return 1
     import k8s_operator_libs_tpu_torch as port
+    import k8s_operator_libs_tpu_torch.kernels as K
     from k8s_operator_libs_tpu_torch import hw
     from k8s_operator_libs_tpu_torch.health import fused
     from k8s_operator_libs_tpu_torch.health.agent import HealthAgent
+    from k8s_operator_libs_tpu_torch.health.probes import (
+        ici_ring_attention_probe,
+    )
     from k8s_operator_libs_tpu_torch.health.report import HealthReport
-    from k8s_operator_libs_tpu_torch.kernels import battery as K
     from k8s_operator_libs_tpu_torch.kernels import build
     from k8s_operator_libs_tpu_torch.upgrade import UpgradeKeys
+    from k8s_operator_libs_tpu_torch.workloads import canary as C
+    from k8s_operator_libs_tpu_torch.workloads import ring_attention as R
 
     require(
         Path(port.__file__).resolve().parent.parent == HERE,
@@ -95,11 +149,13 @@ def main() -> int:
 
     # -- 2. build ----------------------------------------------------------
     build.load_library()
+    sources = ", ".join(str(s.relative_to(HERE)) for s in build.SOURCES)
     print(f"[build] kernels built and loaded in {build.last_build_s:.2f} s "
-          f"({build.SOURCE.relative_to(HERE)})", flush=True)
+          f"({sources})", flush=True)
 
     # -- 3. kernels against their plain versions ---------------------------
-    max_err = {"stream_increment_": 0.0, "verify_stats": 0.0}
+    max_err = {"stream_increment_": 0.0, "verify_stats": 0.0,
+               "block_attention": 0.0}
 
     def same(kname: str, got: torch.Tensor, want: torch.Tensor, what: str):
         torch.cuda.synchronize()
@@ -157,6 +213,99 @@ def main() -> int:
           "(1 GiB fp32, 4096^2 bf16, odd length, unaligned, 0.25, NaN)",
           flush=True)
 
+    def k3_inputs(b, sq, sk, h, d, seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return (
+            torch.randn((b, sq, h, d), device=dev, generator=g),
+            torch.randn((b, sk, h, d), device=dev, generator=g),
+            torch.randn((b, sk, h, d), device=dev, generator=g),
+        )
+
+    # (label, (B, Sq, Sk, H, D), q_offset, k_offset, causal).  Every shape
+    # the ring paths of phase 7 give K3: the deep probe's shards are
+    # member 3 of an 8-member ring (S_local 128) against blocks before, on
+    # and after it, the soak's are S_local 512, the elastic ring's S_local
+    # 64 at D 32; each path's full reference is one block over the whole
+    # sequence (the elastic ring's at 8 and 6 members).
+    k3_cases = [
+        ("deep-probe shard, before the diagonal", (1, 128, 128, 4, 64),
+         384, 0, True),
+        ("deep-probe shard, on the diagonal", (1, 128, 128, 4, 64),
+         384, 384, True),
+        ("deep-probe shard, after the diagonal", (1, 128, 128, 4, 64),
+         384, 640, True),
+        ("deep-probe full reference, S 1024", (1, 1024, 1024, 4, 64),
+         0, 0, True),
+        ("soak shard, on the diagonal", (1, 512, 512, 16, 64),
+         1536, 1536, True),
+        ("soak full reference, S 4096", (1, 4096, 4096, 16, 64), 0, 0, True),
+        ("elastic shard, before the diagonal", (1, 64, 64, 2, 32),
+         192, 0, True),
+        ("elastic shard, on the diagonal", (1, 64, 64, 2, 32),
+         192, 192, True),
+        ("elastic shard, after the diagonal", (1, 64, 64, 2, 32),
+         192, 320, True),
+        ("elastic full reference, 8 members", (1, 512, 512, 2, 32),
+         0, 0, True),
+        ("elastic full reference, 6 members", (1, 384, 384, 2, 32),
+         0, 0, True),
+        ("canary attention", (32, 512, 512, 16, 64), 0, 0, True),
+        ("odd Sq = Sk = 100, D 16", (2, 100, 100, 3, 16), 0, 0, True),
+        ("Sq 100, Sk 37, D 16, ragged diagonal", (2, 100, 37, 3, 16),
+         50, 20, True),
+        ("D 8", (1, 70, 90, 2, 8), 0, 0, True),
+        ("D 128", (1, 96, 80, 2, 128), 16, 0, True),
+        ("non-causal", (2, 128, 192, 4, 64), 0, 0, False),
+        ("wholly masked", (1, 64, 64, 2, 64), 0, 1000, True),
+    ]
+    for seed, (label, (b, sq, sk, h, d), qo, ko, causal) in enumerate(
+        k3_cases
+    ):
+        q, k, v = k3_inputs(b, sq, sk, h, d, seed)
+        num, m, l = K.block_attention(q, k, v, qo, ko, causal)
+        pnum, pm, pl = K.block_attention_plain(q, k, v, qo, ko, causal)
+        torch.cuda.synchronize()
+        for t in (num, m, l):
+            require(bool(torch.isfinite(t).all()), f"K3 {label}: not finite")
+        e_num = float((num - pnum).abs().max())
+        e_m = float((m - pm).abs().max())
+        e_l = float((l - pl).abs().max())
+        e_l_rel = float(((l - pl).abs() / pl.abs().clamp_min(1.0)).max())
+        max_err["block_attention"] = max(
+            max_err["block_attention"], e_num, e_m, e_l
+        )
+        print(f"[K3] {label} {(b, sq, sk, h, d)} offsets {qo}/{ko} "
+              f"causal={causal}: max|num-plain| {e_num:.3e}, "
+              f"max|m-plain| {e_m:.3e}, max|l-plain| {e_l:.3e} "
+              f"(relative {e_l_rel:.3e})", flush=True)
+        require(e_num <= K3_NUM_ATOL, f"K3 {label}: num off by {e_num}")
+        require(e_m <= K3_M_ATOL, f"K3 {label}: m off by {e_m}")
+        require(e_l_rel <= K3_L_RTOL, f"K3 {label}: l off by {e_l_rel}")
+        if label == "wholly masked":
+            require(not (num.any() or m.any() or l.any()),
+                    "K3 wholly masked: want m 0, l 0, num 0 exactly")
+        del q, k, v, num, m, l, pnum, pm, pl
+    print(f"[kernels] K3 matches its plain version within num "
+          f"{K3_NUM_ATOL}, m {K3_M_ATOL}, l {K3_L_RTOL} relative "
+          f"({len(k3_cases)} cases)", flush=True)
+
+    # The ring on the card against a full reference that does not go
+    # through K3 (the paths' own checks compare K3's ring with K3's full
+    # pass): the plain version over the whole sequence, at the deep
+    # probe's and the elastic ring's shapes.
+    for s_local, h, d in ((128, 4, 64), (64, 2, 32)):
+        fn, shard = R.make_ring_attention([dev] * 8)
+        q, k, v = k3_inputs(1, 8 * s_local, 8 * s_local, h, d, 200)
+        out = torch.cat(fn(shard(q), shard(k), shard(v)), dim=1)
+        pnum, _, pl = K.block_attention_plain(q, k, v, 0, 0, True)
+        err = float((out - R._normalise(pnum, pl, q.dtype)).abs().max())
+        print(f"[K3] ring of 8 on the card, S_local {s_local}, H {h}, D {d}, "
+              f"against the plain full reference: max err {err:.3e}",
+              flush=True)
+        require(err < RING_ATOL, f"ring against the plain reference: {err}")
+        del q, k, v, out, pnum, pl
+
     flush_buf = torch.empty(256 * 1024 * 1024 // 4, device=dev)
 
     def time_ms(fn, iters: int, flush: bool = False) -> float:
@@ -184,9 +333,10 @@ def main() -> int:
             total += start.elapsed_time(end)
         return total / iters
 
-    def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    def bound(nbytes: float, ops: float,
+              peak_tflops: float = FP32_PEAK_TFLOPS) -> tuple[float, str]:
         by_bytes = nbytes / (hbm_gbps * 1e9) * 1e3
-        by_ops = ops / (FP32_PEAK_TFLOPS * 1e12) * 1e3
+        by_ops = ops / (peak_tflops * 1e12) * 1e3
         return max(by_bytes, by_ops), (
             "bytes" if by_bytes >= by_ops else "operations"
         )
@@ -217,9 +367,70 @@ def main() -> int:
         ))
     timing["verify_stats"] = dict(shapes[0], shapes=shapes)
     del x, c, flush_buf
+
+    # K3 at the deep probe's shard and the soak's (the main path's
+    # shapes) and at the canary's attention shape, each on the diagonal.
+    # Bytes: fp32 q, k, v read once, num, m, l written once.  Operations:
+    # 2 for each product of q.k and of p.v over the visible (i, j) pairs,
+    # at the bf16 tensor-core rate.  The library call is SDPA on bf16
+    # [B, H, S, D], the port never calls it.
+    def kernel_device_ms(fn, iters: int, kernel: str) -> float:
+        """Mean device time of the kernel named ``kernel`` per call, from
+        a torch.profiler trace: the event times above also hold host
+        launch cost where a launch is shorter than the host's work."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = [op.self_device_time_total for op in prof.key_averages()
+              if op.device_type == DeviceType.CUDA and kernel in op.key]
+        require(bool(us), f"no {kernel} in the profiler trace")
+        return sum(us) / iters / 1e3
+
+    shapes = []
+    for label, (b, s_, h, d), iters in (
+        ("deep-probe shard (1, 128, 4, 64), causal", (1, 128, 4, 64), 200),
+        ("soak shard (1, 512, 16, 64), causal", (1, 512, 16, 64), 100),
+        ("canary attention (32, 512, 16, 64), causal", (32, 512, 16, 64),
+         20),
+    ):
+        q, k, v = k3_inputs(b, s_, s_, h, d, 100)
+        qh, kh, vh = (t.transpose(1, 2).to(torch.bfloat16).contiguous()
+                      for t in (q, k, v))
+        pairs = s_ * (s_ + 1) // 2
+        b_ms, b_by = bound(
+            4 * (2 * b * s_ * h * d + 2 * b * s_ * h * d + 2 * b * s_ * h),
+            4 * b * h * d * pairs, BF16_PEAK_TFLOPS,
+        )
+        shapes.append(dict(
+            at=label,
+            ms=time_ms(lambda: K.block_attention(q, k, v, 0, 0, True), iters),
+            device_ms=kernel_device_ms(
+                lambda: K.block_attention(q, k, v, 0, 0, True), iters,
+                "block_attention_kernel",
+            ),
+            plain_ms=time_ms(
+                lambda: K.block_attention_plain(q, k, v, 0, 0, True), iters
+            ),
+            library_ms=time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, is_causal=True
+                ),
+                iters,
+            ),
+            bound_ms=b_ms, bound_by=b_by,
+        ))
+        del q, k, v, qh, kh, vh
+    timing["block_attention"] = dict(shapes[0], shapes=shapes)
     for kname, t in timing.items():
         for s in t.get("shapes", [t]):
-            print(f"[timing] {kname} {s['at']}: kernel {s['ms']:.4f} ms, "
+            device = (f" (device {s['device_ms']:.4f} ms by the profiler)"
+                      if "device_ms" in s else "")
+            print(f"[timing] {kname} {s['at']}: kernel {s['ms']:.4f} ms"
+                  f"{device}, "
                   f"bound {s['bound_ms']:.4f} ms ({s['bound_by']}), "
                   f"plain {s['plain_ms']:.4f} ms, library "
                   f"{s['library_ms']:.4f} ms on {card}", flush=True)
@@ -239,16 +450,22 @@ def main() -> int:
     fused.reset_battery_cache()
     launches = {k: 0 for k in K.launch_counts()}
 
-    def on_path(label: str, fn):
+    battery_kernels = ("stream_increment_", "verify_stats")
+    ring_kernels = ("block_attention",)
+
+    def on_path(label: str, fn, must: tuple[str, ...]):
         """Run one path of the main path with the counts zeroed just
-        before it and read just after it; every kernel must launch."""
+        before it and read just after it; each kernel the path names in
+        ``must`` has to have launched."""
         K.reset_launch_counts()
         out = fn()
         counts = K.launch_counts()
         print(f"[launches] {label}: "
               + ", ".join(f"{k} {n}" for k, n in counts.items()), flush=True)
+        for kname in must:
+            require(counts[kname] > 0,
+                    f"{kname} was not launched on the {label} path")
         for kname, n in counts.items():
-            require(n > 0, f"{kname} was not launched on the {label} path")
             launches[kname] += n
         return out
 
@@ -261,7 +478,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     unfused = on_path("unfused",
-                      lambda: port.run_host_probe(fused=False, **PROD))
+                      lambda: port.run_host_probe(fused=False, **PROD),
+                      battery_kernels)
     print(f"[unfused] production battery in "
           f"{time.perf_counter() - t0:.2f} s on {card}:")
     all_ok(unfused, "unfused battery")
@@ -275,7 +493,8 @@ def main() -> int:
     runs = []
     for attempt in ("cold", "warm"):
         checks = on_path(f"fused {attempt}",
-                         lambda: port.run_host_probe(fused=True, **PROD))
+                         lambda: port.run_host_probe(fused=True, **PROD),
+                         battery_kernels)
         print(f"[fused] {attempt} production battery on {card}:")
         all_ok(checks, f"fused battery ({attempt})")
         runs.append(checks[1:])
@@ -319,7 +538,7 @@ def main() -> int:
     client = RecordingClient()
     agent = HealthAgent(client, "gpu-node-0", keys,
                         driver_revision="rev-smoke", **PROD)
-    report = on_path("agent", agent.run_once)
+    report = on_path("agent", agent.run_once, battery_kernels)
     require(report.healthy, f"agent report unhealthy: {report.to_json()}")
     require(len(client.patches) == 1, f"patches: {client.patches}")
     node_name, patch = client.patches[0]
@@ -336,29 +555,175 @@ def main() -> int:
     ).probe(group)
     require(verdict.healthy, f"NodeReportProber: {verdict.detail}")
     local = on_path("local prober",
-                    lambda: port.LocalDeviceProber(**PROD).probe(group))
+                    lambda: port.LocalDeviceProber(**PROD).probe(group),
+                    battery_kernels)
     require(local.healthy, f"LocalDeviceProber: {local.detail}")
     stats = fused.battery_stats()
     require(stats["fallbacks"] == 0,
             f"fused fallbacks after the agent and local prober: {stats}")
     print(f"[agent] published {len(raw)} bytes; NodeReportProber: "
           f"{verdict.detail}; LocalDeviceProber: {local.detail}")
+    # -- 7. ring attention on the card ---------------------------------------
+    ring = [dev] * 8
+    t0 = time.perf_counter()
+    deep = on_path("deep probe, 8-member ring on one card",
+                   lambda: ici_ring_attention_probe(ring), ring_kernels)
+    print(f"[ring] deep probe in {time.perf_counter() - t0:.2f} s on {card}: "
+          f"ok={deep.ok} {deep.detail} latency {deep.latency_ms:.3f} ms "
+          f"{json.dumps(deep.metrics)}", flush=True)
+    require(deep.ok, f"deep probe: {deep.detail}")
+    require(deep.metrics["global_seq"] == 1024.0, f"deep probe: {deep}")
+    require(float(deep.detail.rsplit(" ", 1)[1]) < RING_ATOL,
+            f"deep probe error: {deep.detail}")
+
+    soak = on_path(
+        "ring soak, S 4096",
+        lambda: R.ring_attention_soak(ring, seq_per_device=512, heads=16,
+                                      head_dim=64),
+        ring_kernels,
+    )
+    print(f"[ring] soak S {soak['global_seq']} over {soak['devices']} "
+          f"members: ok={soak['ok']} max err {soak['max_err']:.3e}, "
+          f"latency {soak['latency_ms']:.3f} ms, moved {soak['moved_bytes']} "
+          f"bytes, {soak['link_gbps']:.2f} GB/s (local copies: one card) "
+          f"on {card}", flush=True)
+    require(soak["ok"] and soak["max_err"] < RING_ATOL, f"soak: {soak}")
+    require(soak["global_seq"] == 4096, f"soak: {soak}")
+
+    def elastic_rounds():
+        er = R.ElasticRingSoak(ring, n_slices=4)
+        rounds = [er.run_round()]
+        er.exclude_slice(2)
+        rounds.append(er.run_round())
+        er.rejoin_slice(2)
+        rounds.append(er.run_round())
+        return rounds
+
+    rounds = on_path("elastic ring", elastic_rounds, ring_kernels)
+    for r in rounds:
+        print(f"[ring] elastic round: {json.dumps(r)}")
+        require(r["ok"] and r["max_err"] < RING_ATOL, f"elastic: {r}")
+    require([r["devices"] for r in rounds] == [8, 6, 8],
+            f"elastic ring sizes: {rounds}")
+
+    checks = on_path("battery with deep=True, one device",
+                     lambda: port.run_host_probe([dev], deep=True, **PROD),
+                     battery_kernels)
+    print(f"[ring] battery with deep=True on one device, on {card}:")
+    all_ok(checks, "battery with deep=True")
+    require(checks[-1].name == "ici_ring_attention"
+            and checks[-1].detail == "single device; no ring to soak",
+            f"deep check on one device: {checks[-1]}")
+
+    # -- 8. the canary -----------------------------------------------------
+    def bench_canary():
+        t0 = time.perf_counter()
+        runner = C.CanaryRunner(C.CanaryConfig(**BENCH_CANARY), device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        warm = [runner.run_step() for _ in range(3)]
+        warm_s = time.perf_counter() - t0
+        runner.reset_timing()
+        for _ in range(CANARY_TIMED_STEPS):
+            runner.run_step()
+        return runner, init_s, warm, warm_s
+
+    runner, init_s, warm, warm_s = on_path("canary, bench width",
+                                           bench_canary, ())
+    losses = warm + runner.losses
+    print(f"[canary] {runner.param_count()} parameters, init {init_s:.2f} s, "
+          f"3 warm-up steps {warm_s:.2f} s; losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    require(len(runner.losses) >= 20, "fewer than 20 timed canary steps")
+    require(all(math.isfinite(x) for x in losses),
+            f"canary loss not finite: {losses}")
+    require(losses[-1] < losses[0],
+            f"canary loss did not decrease: {losses}")
+    perf = runner.perf_summary()
+    print(f"[canary] median step {perf['median_step_s'] * 1e3:.3f} ms, "
+          f"{perf['tokens_per_s']:.1f} tokens/s, "
+          f"{perf['achieved_tflops']:.2f} TFLOPS, MFU {perf.get('mfu')} "
+          f"against {BF16_PEAK_TFLOPS:.0f}, max gap "
+          f"{runner.max_gap_seconds():.4f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
+          f"on {card}", flush=True)
+    sustained = runner.sustained_perf_summary()
+    print(f"[canary] sustained: {json.dumps(sustained)} on {card}",
+          flush=True)
+
+    # Where a step's device time goes: two steps under torch.profiler.
+    # The device's busy share sums the kernels' times over the window's
+    # wall time; the breakdown lists the aten ops by the device time of
+    # the kernels each launched itself.
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            runner.run_step()
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+    ops = prof.key_averages()
+    kernel_us = sum(op.self_device_time_total for op in ops
+                    if op.device_type == DeviceType.CUDA)
+    host_ops = [op for op in ops if op.device_type == DeviceType.CPU
+                and op.self_device_time_total > 0]
+    if kernel_us <= 0:
+        print("[canary] profile: the trace holds no device time "
+              "(device busy share not measured)", flush=True)
+    else:
+        print(f"[canary] profile of 2 steps: device busy "
+              f"{kernel_us / 1e6 / window_s:.3f} of {window_s * 1e3:.1f} ms "
+              f"wall, kernels {kernel_us / 2e3:.3f} ms a step, on {card}; "
+              f"ops by the device time of their kernels, a step:")
+        for op in sorted(host_ops, key=lambda op: op.self_device_time_total,
+                         reverse=True)[:15]:
+            print(f"  {op.key}: {op.self_device_time_total / 2e3:.3f} ms "
+                  f"({op.self_device_time_total / kernel_us:.3f}), "
+                  f"{op.count // 2} calls", flush=True)
+    del runner
+
+    tiny = C.CanaryConfig(**TINY_CANARY)
+    on_cpu = C.CanaryRunner(tiny, device=torch.device("cpu"))
+    on_card = C.CanaryRunner(tiny, device=dev)
+    on_card.params = C.params_from_numpy(C.params_to_numpy(on_cpu.params),
+                                         dev)
+    on_card.opt_state = on_card.opt.init(on_card.params)
+    for step in range(3):
+        l_cpu, l_card = on_cpu.run_step(), on_card.run_step()
+        print(f"[canary] small canary step {step}: CPU {l_cpu:.6f}, "
+              f"card {l_card:.6f}, |diff| {abs(l_cpu - l_card):.2e}")
+        atol = TINY_FIRST_LOSS_ATOL if step == 0 else TINY_LOSS_ATOL
+        require(abs(l_cpu - l_card) <= atol,
+                f"small canary step {step}: card {l_card} vs CPU {l_cpu}")
+
     print("[launches] main path total: "
           + ", ".join(f"{k} {n}" for k, n in launches.items()), flush=True)
 
-    # -- 7. kernel line, card, result --------------------------------------
-    source = str(build.SOURCE.relative_to(HERE))
+    # -- 9. kernel line, card, result --------------------------------------
+    source = {
+        "stream_increment_":
+            "k8s_operator_libs_tpu_torch/kernels/csrc/battery_kernels.cu",
+        "verify_stats":
+            "k8s_operator_libs_tpu_torch/kernels/csrc/battery_kernels.cu",
+        "block_attention":
+            "k8s_operator_libs_tpu_torch/kernels/csrc/attention_kernels.cu",
+    }
     replaces = {
         "stream_increment_": "k8s_operator_libs_tpu/health/probes.py:517",
         "verify_stats": "k8s_operator_libs_tpu/health/fused.py:194",
+        "block_attention":
+            "k8s_operator_libs_tpu/workloads/ring_attention.py:55",
     }
     kernels = [
         dict(
-            name=kname, route="cuda", source=source,
+            name=kname, route="cuda", source=source[kname],
             replaces=replaces[kname], launches=launches[kname],
             max_abs_err=max_err[kname], **timing[kname],
         )
-        for kname in ("stream_increment_", "verify_stats")
+        for kname in K.launch_counts()
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

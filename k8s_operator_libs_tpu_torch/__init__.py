@@ -3,9 +3,12 @@
 It grows slice by slice beside the JAX package ``k8s_operator_libs_tpu``,
 which stays the reference it is tested against.  It imports ``torch``,
 numpy and the standard library, never ``jax`` and nothing of the JAX
-package.  This slice ports the node health battery and the report and
+package.  Ported so far: the node health battery and the report and
 prober layer around it (:mod:`.health`), with hand-written CUDA kernels
-for the HBM stream and the verification reductions (:mod:`.kernels`).
+for the HBM stream and the verification reductions; and the workloads
+(:mod:`.workloads`) on one device: the canary train step and ring
+attention, whose block step is a hand-written CUDA kernel
+(:mod:`.kernels`).
 """
 
 from k8s_operator_libs_tpu_torch.health import (

@@ -3,7 +3,8 @@
 Counterpart of ``k8s_operator_libs_tpu.health``:
 
 - :mod:`probes`: the probe battery (device enumeration, tensor-core
-  matmul, HBM stream, fail-closed multi-GPU collectives);
+  matmul, HBM stream, fail-closed multi-GPU collectives, and the
+  ring-attention deep probe);
 - :mod:`fused`: the battery enqueued as one body per device with one
   readback, behind a topology-keyed warm-up cache;
 - :mod:`report`: the per-host :class:`HealthReport` node annotation;

@@ -16,7 +16,11 @@ messages, so reports from either package read the same:
   count;
 - **ici_allreduce / ici_ring**: with one device they pass vacuously, as
   in the JAX package; with two or more they fail closed, because the
-  multi-GPU collectives are not ported yet.
+  multi-GPU collectives are not ported yet;
+- **ici_ring_attention** (the deep probe): ring attention over every
+  device (:mod:`~k8s_operator_libs_tpu_torch.workloads.ring_attention`,
+  block kernel K3) against single-device full attention; vacuous on one
+  device.
 
 Devices are explicit ``torch.device``s.  With ``devices=None`` the
 entry points enumerate the CUDA devices and never fall back to the CPU;
@@ -516,9 +520,15 @@ def ici_ring_probe(
 
 def ici_ring_attention_probe(
     devices: Optional[Sequence[torch.device]] = None,
+    seq_per_device: int = 128,
 ) -> CheckResult:
-    """Deep ring-attention soak: vacuous on one device, fail-closed on
-    two or more until ring attention is ported."""
+    """Deep link soak: ring attention over every device, one process
+    driving them all, checked against single-device full attention.
+    Vacuous on one device, as in the JAX package."""
+    from k8s_operator_libs_tpu_torch.workloads.ring_attention import (
+        ring_attention_soak,
+    )
+
     devs = list(devices) if devices is not None else cuda_devices()
     if len(devs) < 2:
         return CheckResult(
@@ -526,10 +536,25 @@ def ici_ring_attention_probe(
             "single device; no ring to soak",
             {"devices": float(len(devs))},
         )
+    try:
+        res = ring_attention_soak(devs, seq_per_device=seq_per_device)
+    except Exception as e:  # noqa: BLE001 — any device fault fails the check
+        return CheckResult(
+            "ici_ring_attention", False, 0.0, f"ring attention failed: {e}"
+        )
     return CheckResult(
-        "ici_ring_attention", False, 0.0,
-        f"{len(devs)} devices: ring attention and {COLLECTIVES_NOT_PORTED}",
-        {"devices": float(len(devs))},
+        "ici_ring_attention",
+        bool(res["ok"]),
+        float(res["latency_ms"]),
+        (
+            f"seq {res['global_seq']} over {res['devices']} devices, "
+            f"max err {res['max_err']:.2e}"
+        ),
+        {
+            "devices": float(res["devices"]),
+            "link_gbps": float(res["link_gbps"]),
+            "global_seq": float(res["global_seq"]),
+        },
     )
 
 

@@ -1,13 +1,18 @@
 """Hand-written CUDA kernels of the port, their plain versions and build.
 
-See :mod:`.battery` for the wrappers and ``csrc/battery_kernels.cu`` for
-the kernels.
+- :mod:`.battery`: K1 ``stream_increment_`` and K2 ``verify_stats``
+  (``csrc/battery_kernels.cu``);
+- :mod:`.attention`: K3 ``block_attention`` (``csrc/attention_kernels.cu``).
+
+``launch_counts()`` reads every wrapper's launch count and
+``reset_launch_counts()`` zeroes them.
 """
 
+from k8s_operator_libs_tpu_torch.kernels.attention import (
+    block_attention,
+    block_attention_plain,
+)
 from k8s_operator_libs_tpu_torch.kernels.battery import (
-    KERNELS,
-    launch_counts,
-    reset_launch_counts,
     stream_increment_,
     stream_increment_plain_,
     verify_stats,
@@ -15,8 +20,23 @@ from k8s_operator_libs_tpu_torch.kernels.battery import (
 )
 from k8s_operator_libs_tpu_torch.kernels.build import load_library
 
+KERNELS = (stream_increment_, verify_stats, block_attention)
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches per wrapper since the last reset."""
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
 __all__ = [
     "KERNELS",
+    "block_attention",
+    "block_attention_plain",
     "launch_counts",
     "load_library",
     "reset_launch_counts",

@@ -112,15 +112,3 @@ def verify_stats(x: torch.Tensor, center: float) -> torch.Tensor:
 
 
 verify_stats.launches = 0
-
-KERNELS = (stream_increment_, verify_stats)
-
-
-def launch_counts() -> dict[str, int]:
-    """Kernel launches per wrapper since the last reset."""
-    return {k.__name__: k.launches for k in KERNELS}
-
-
-def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0

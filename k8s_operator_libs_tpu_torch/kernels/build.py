@@ -1,11 +1,12 @@
-"""Build and load the battery's CUDA kernels.
+"""Build and load the port's CUDA kernels.
 
-``battery_kernels.cu`` has a plain C interface.  At first use it is
-compiled with ``nvcc`` for ``sm_90a`` into a shared library under
-``build/torch_kernels/`` beside the package, named by a hash of the
-source so an edited source is rebuilt, and loaded with ``ctypes``.
-Nothing here runs at import: the CPU tests import every module and have
-no ``nvcc``.
+Every ``csrc/*.cu`` has a plain C interface.  At first use each source is
+compiled with ``nvcc`` for ``sm_90a`` into an object file, all of them at
+once (one ``nvcc`` process per source), and the objects are linked into
+one shared library under ``build/torch_kernels/`` beside the package,
+named by a hash of all the sources and flags so an edited source is
+rebuilt, and loaded with ``ctypes``.  Nothing here runs at import: the
+CPU tests import every module and have no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -20,12 +21,14 @@ import threading
 import time
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "battery_kernels.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = tuple(sorted(CSRC.glob("*.cu")))
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
+NVCC_TIMEOUT_S = 600
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -44,34 +47,67 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (put it on PATH or set CUDA_HOME)")
 
 
+def _run_all(commands: list[list[str]], what: list[str]) -> None:
+    """Run the commands concurrently; raise with the output of every one
+    that failed."""
+    procs = [
+        subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        for cmd in commands
+    ]
+    failures = []
+    try:
+        for proc, name in zip(procs, what):
+            out, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
+            if proc.returncode != 0:
+                failures.append(
+                    f"nvcc failed ({proc.returncode}) on {name}:\n{out}"
+                )
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failures:
+        raise RuntimeError("\n".join(failures))
+
+
 def _compile(target: Path) -> None:
     target.parent.mkdir(parents=True, exist_ok=True)
-    # Compile to a private name and rename: concurrent first users never
-    # load a half-written library.
-    fd, tmp = tempfile.mkstemp(
-        suffix=".so", prefix=".tmp-", dir=target.parent
-    )
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-            capture_output=True,
-            text=True,
-            timeout=600,
+    # Build in a private directory and rename the library into place:
+    # concurrent first users never load a half-written library.
+    with tempfile.TemporaryDirectory(prefix=".tmp-", dir=target.parent) as tmp:
+        objects = [Path(tmp) / f"{src.stem}.o" for src in SOURCES]
+        nvcc = _nvcc()
+        _run_all(
+            [
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(SOURCES, objects)
+            ],
+            [src.name for src in SOURCES],
         )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) on {SOURCE.name}:\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        lib = Path(tmp) / target.name
+        _run_all(
+            [[nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib),
+              *map(str, objects)]],
+            ["the link"],
+        )
+        os.replace(lib, target)
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # The shared headers (``*.cuh``) count too: an edited header rebuilds.
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, sz, i, f = ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_float
+    ll = ctypes.c_longlong
     lib.battery_threads_per_block.argtypes = []
     lib.battery_threads_per_block.restype = i
     lib.battery_stream_increment.argtypes = [vp, sz, i, i, vp]
@@ -82,6 +118,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.restype = i
     lib.battery_error_string.argtypes = [i]
     lib.battery_error_string.restype = ctypes.c_char_p
+    lib.attention_block_f32.argtypes = [
+        vp, vp, vp, vp, vp, vp,  # q, k, v, num, m, l
+        i, i, i, i, i,  # B, Sq, Sk, H, D
+        ll, ll, i, f,  # q_offset, k_offset, causal, scale
+        i, vp,  # device, stream
+    ]
+    lib.attention_block_f32.restype = i
     return lib
 
 
@@ -91,8 +134,7 @@ def load_library() -> ctypes.CDLL:
     with _LOCK:
         if _LIB is None:
             t0 = time.perf_counter()
-            digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-            target = BUILD_DIR / f"libbattery_kernels-{digest}.so"
+            target = BUILD_DIR / f"libport_kernels-{_digest()}.so"
             if not target.exists():
                 _compile(target)
             _LIB = _bind(ctypes.CDLL(str(target)))

@@ -43,6 +43,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -211,15 +213,15 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T>
 int launch_verify(const T* x, size_t n, float center, float* partials,
                   float* out, int device, int blocks, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
   constexpr int kVec = 16 / sizeof(T);
   const size_t head = head_elems(x, n);
   const size_t nvec = (n - head) / kVec;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   verify_partials_kernel<T><<<blocks, kThreads, 0, s>>>(
       x, n, head, nvec, center, reinterpret_cast<Stats*>(partials));
-  err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   verify_final_kernel<<<1, kThreads, 0, s>>>(
       reinterpret_cast<const Stats*>(partials), blocks, out);
@@ -234,8 +236,8 @@ int battery_threads_per_block() { return kThreads; }
 
 int battery_stream_increment(float* x, size_t n, int device, int blocks,
                              void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
   const size_t head = head_elems(x, n);
   const size_t nvec = (n - head) / 4;
   stream_increment_kernel<<<blocks, kThreads, 0,

@@ -1,9 +1,13 @@
-"""The battery's kernels: plain versions against numpy, wrapper checks,
+"""The port's kernels: plain versions against numpy, wrapper checks,
 and (on a CUDA card only) each kernel against its plain version.
 
-Tolerance is exact throughout: an fp32 add, a min, a max and an absolute
+K1 and K2 are held exactly: an fp32 add, a min, a max and an absolute
 difference round the same way in numpy and PyTorch, and the kernels
-compute the same operations.
+compute the same operations.  K3 (``block_attention``) is held on the
+card within the tolerances ``chip_smoke.py`` states for it: m 1e-4
+absolute, l 1e-4 relative, num 5e-2 absolute (bf16 rounding of p after
+fp32 sums taken in another order); its plain version is held against
+the JAX package in ``tests/test_torch_ring_attention.py``.
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from k8s_operator_libs_tpu_torch.kernels import (  # noqa: E402
+    block_attention,
+    block_attention_plain,
     build,
     launch_counts,
     stream_increment_,
@@ -127,12 +133,16 @@ def test_wrappers_reject_noncontiguous_and_empty(bad, which):
 
 def test_build_targets_sm90a_and_binds_every_entry_point():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
-    src = build.SOURCE.read_text()
+    assert [p.name for p in build.SOURCES] == [
+        "attention_kernels.cu", "battery_kernels.cu",
+    ]
+    src = "".join(p.read_text() for p in build.SOURCES)
     for symbol in (
         "battery_stream_increment",
         "battery_verify_stats_f32",
         "battery_verify_stats_bf16",
         "battery_error_string",
+        "attention_block_f32",
     ):
         assert f"{symbol}(" in src
     # The build writes into a directory git ignores.
@@ -163,3 +173,42 @@ def test_kernels_match_plain_versions_on_the_card():
     c = torch.full((4096, 4096), 0.5, dtype=torch.bfloat16, device=dev)
     c[5, 7] = float("nan")
     assert torch.isnan(verify_stats(c, 0.5)).all()
+
+
+@pytest.mark.cuda
+def test_block_attention_matches_plain_version_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    cases = [
+        # (B, Sq, Sk, H, D), q_offset, k_offset, causal
+        ((1, 128, 128, 4, 64), 384, 0, True),
+        ((1, 128, 128, 4, 64), 384, 384, True),
+        ((1, 128, 128, 4, 64), 384, 640, True),  # wholly masked
+        # The elastic ring's shards (D 32) and its full reference.
+        ((1, 64, 64, 2, 32), 192, 0, True),
+        ((1, 64, 64, 2, 32), 192, 192, True),
+        ((1, 64, 64, 2, 32), 192, 320, True),
+        ((1, 512, 512, 2, 32), 0, 0, True),
+        ((2, 100, 100, 3, 16), 0, 0, True),
+        ((1, 70, 90, 2, 8), 5, 0, True),
+        ((2, 128, 192, 4, 64), 0, 0, False),
+        ((1, 96, 80, 2, 128), 16, 0, True),
+    ]
+    before = block_attention.launches
+    for (b, sq, sk, h, d), qo, ko, causal in cases:
+        q = torch.randn((b, sq, h, d), device=dev, generator=gen)
+        k = torch.randn((b, sk, h, d), device=dev, generator=gen)
+        v = torch.randn((b, sk, h, d), device=dev, generator=gen)
+        num, m, l = block_attention(q, k, v, qo, ko, causal)
+        pnum, pm, pl = block_attention_plain(q, k, v, qo, ko, causal)
+        torch.cuda.synchronize()
+        assert float((m - pm).abs().max()) <= 1e-4
+        assert float(((l - pl).abs() / pl.clamp_min(1.0)).max()) <= 1e-4
+        assert float((num - pnum).abs().max()) <= 5e-2
+    assert block_attention.launches == before + len(cases)
+    with pytest.raises(ValueError):
+        block_attention(q[..., :4].contiguous(), k[..., :4].contiguous(),
+                        v[..., :4].contiguous())
