@@ -19,27 +19,38 @@ Phases:
    shapes, non-causal and wholly masked blocks; the ring on the card
    against the plain version's full attention; CUDA-event times beside the
    bound and one library call; then the fused battery at a small size on
-   the card against the CPU;
+   the card against the CPU; K4 bit for bit at 2, 3, 5 and 8 sources of
+   2^20 and 2^22 elements, at a ragged length with unaligned offsets and
+   with a NaN in one source, and the all-reduce and ring shift over 2, 3
+   and 8 members of the card against the plain version, with K4's times;
 4. the unfused battery at production size (n=4096 bf16, 1 GiB stream);
 5. the fused battery twice (a warm-up-cache miss, then a hit);
 6. the node agent publishing a report, which the port's NodeReportProber
    accepts, and the LocalDeviceProber;
-7. ring attention on the card: the deep probe over an 8-member ring on
+7. the host's collectives over 8 members of the one card: both ICI
+   probes at their defaults, the fused battery (a miss, then a hit) and
+   the unfused one over the 8 members, the LocalDeviceProber over them,
+   and a ring in which member 0 keeps its own value, which must fail
+   with the JAX package's detail; and the host time to enqueue one
+   all-reduce round, which bounds the bus bandwidth an 8-card board can
+   show;
+8. ring attention on the card: the deep probe over an 8-member ring on
    the one card (S 1024), the soak at S 4096, the elastic ring (a round,
    exclude, round, rejoin, round) and the battery with ``deep=True`` on
    one device, where the deep check is vacuous as in the JAX package;
-8. the canary at the bench's width (103 M parameters) for 3 warm-up and
+9. the canary at the bench's width (103 M parameters) for 3 warm-up and
    20 timed steps, its throughput and sustained device step time; and
    the small canary on the card against the CPU with the same weights
    and batches.
 
-Kernel launch counts are zeroed just before each path of phases 4-8
-(unfused, fused cold, fused warm, agent, local prober, the ring paths,
-the battery with the deep flag, the canary) and read just after it: each
-path names the kernels it must launch (K1 and K2 on the battery paths,
-K3 on the ring paths), and no path may have fallen back from the fused
-battery.  Any failure exits non-zero and prints no result; so does a
-machine without a CUDA device.  The last line of standard output is one
+Kernel launch counts are zeroed just before each path of phases 4-9
+(unfused, fused cold, fused warm, agent, local prober, the collective
+paths, the ring paths, the battery with the deep flag, the canary) and
+read just after it: each path names the kernels it must launch (K1 and
+K2 on the battery paths, K3 on the ring paths, K4 on the collective
+paths), and no path may have fallen back from the fused battery.  Any
+failure exits non-zero and prints no result; so does a machine without
+a CUDA device.  The last line of standard output is one
 JSON object,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -89,6 +100,11 @@ TINY_CANARY = dict(vocab=64, d_model=64, n_heads=4, n_layers=2, d_ff=128,
 TINY_FIRST_LOSS_ATOL = 1e-4
 TINY_LOSS_ATOL = 1e-3
 CANARY_TIMED_STEPS = 20
+# NVLink one way per H100 SXM (NVIDIA data sheet): what an 8-card board's
+# all-reduce of a 4 MiB shard needs at least, 2 * 7/8 * 4 MiB over it.
+NVLINK_GBPS = 450.0
+ICI_MEMBERS = 8
+ALLREDUCE_ELEMS = 1 << 20
 
 
 def require(cond: bool, msg: str) -> None:
@@ -123,10 +139,14 @@ def main() -> int:
     from k8s_operator_libs_tpu_torch.health import fused
     from k8s_operator_libs_tpu_torch.health.agent import HealthAgent
     from k8s_operator_libs_tpu_torch.health.probes import (
+        ici_allreduce_probe,
         ici_ring_attention_probe,
+        ici_ring_probe,
+        resolve_floors,
     )
     from k8s_operator_libs_tpu_torch.health.report import HealthReport
     from k8s_operator_libs_tpu_torch.kernels import build
+    from k8s_operator_libs_tpu_torch.kernels import collectives
     from k8s_operator_libs_tpu_torch.upgrade import UpgradeKeys
     from k8s_operator_libs_tpu_torch.workloads import canary as C
     from k8s_operator_libs_tpu_torch.workloads import ring_attention as R
@@ -155,7 +175,7 @@ def main() -> int:
 
     # -- 3. kernels against their plain versions ---------------------------
     max_err = {"stream_increment_": 0.0, "verify_stats": 0.0,
-               "block_attention": 0.0}
+               "block_attention": 0.0, "peer_reduce": 0.0}
 
     def same(kname: str, got: torch.Tensor, want: torch.Tensor, what: str):
         torch.cuda.synchronize()
@@ -306,6 +326,59 @@ def main() -> int:
         require(err < RING_ATOL, f"ring against the plain reference: {err}")
         del q, k, v, out, pnum, pl
 
+    # K4 bit for bit: the same fp32 adds in index order and IEEE division
+    # as its plain version, so every bit agrees (NaN where either has one).
+    def same_bits(got: torch.Tensor, want: torch.Tensor, what: str):
+        torch.cuda.synchronize()
+        nan = got.isnan()
+        require(torch.equal(nan, want.isnan()),
+                f"peer_reduce {what}: NaN pattern differs from plain")
+        diff = (got - want).abs().nan_to_num(0.0).max().item()
+        max_err["peer_reduce"] = max(max_err["peer_reduce"], diff)
+        require(torch.equal(got[~nan].view(torch.int32),
+                            want[~nan].view(torch.int32)),
+                f"peer_reduce {what}: bits differ from plain (max {diff})")
+
+    k4_cases = 0
+    for k in (2, 3, 5, 8):
+        # (length, source offset, dst offset): the main path's 2^20 and
+        # 2^22 (8 x 16 MiB in, beyond the 50 MB L2), aligned; a ragged
+        # length with sources and dst unaligned alike (scalar head), and
+        # apart (scalar throughout).
+        for n, off, doff in ((1 << 20, 0, 0), (1 << 22, 0, 0),
+                             (1_000_003, 3, 3), (1_000_003, 1, 0)):
+            srcs = [torch.randn(n + off, device=dev, generator=gen)
+                    for _ in range(k)]
+            srcs[k // 2][off + n - 1] = float("nan")
+            for divisor in (1.0, float(k)):
+                dst = torch.empty(n + doff, device=dev)[doff:]
+                want = torch.empty(n, device=dev)
+                K.peer_reduce(dst, srcs, off, divisor)
+                K.peer_reduce_plain(want, srcs, off, divisor)
+                same_bits(dst, want, f"k={k} n={n} off={off}/{doff} "
+                                     f"divisor={divisor}")
+                require(bool(dst[n - 1].isnan()),
+                        f"peer_reduce k={k} n={n}: the NaN did not come out")
+                k4_cases += 1
+            del srcs, dst, want
+    for n in (2, 3, 8):
+        for elems in (ALLREDUCE_ELEMS, 1001):
+            shards = [torch.randn(elems, device=dev, generator=gen)
+                      for _ in range(n)]
+            want = torch.empty(elems, device=dev)
+            K.peer_reduce_plain(want, shards, 0, float(n))
+            for j, out in enumerate(K.all_reduce(shards, float(n))):
+                same_bits(out, want,
+                          f"all_reduce of {n} x {elems}, member {j}")
+            for j, out in enumerate(K.ring_shift(shards)):
+                same_bits(out, shards[j - 1],
+                          f"ring_shift of {n} x {elems}, member {j}")
+            del shards, want
+    print(f"[kernels] K4 matches its plain version bit for bit "
+          f"({k4_cases} cases: k 2, 3, 5, 8; 2^20, 2^22, ragged, unaligned, "
+          f"NaN), and so do all_reduce and ring_shift over 2, 3 and 8 "
+          f"members of the card", flush=True)
+
     flush_buf = torch.empty(256 * 1024 * 1024 // 4, device=dev)
 
     def time_ms(fn, iters: int, flush: bool = False) -> float:
@@ -425,6 +498,37 @@ def main() -> int:
         ))
         del q, k, v, qh, kh, vh
     timing["block_attention"] = dict(shapes[0], shapes=shapes)
+
+    # K4 at the shapes of the main path's all-reduce (8 members of 2^20:
+    # a reduce-scatter launch reads 8 chunks of 2^17, an all-gather launch
+    # copies one) and over whole shards of 2^20 and 2^22.  Bytes: each
+    # source read once, dst written once; operations: k - 1 adds and a
+    # division per element, fp32.  The library call is one sum over a
+    # pre-stacked [k, len] tensor, timed only.
+    shapes = []
+    chunk = ALLREDUCE_ELEMS // ICI_MEMBERS
+    for label, k, n, iters in (
+        (f"reduce-scatter launch, k 8 x {chunk}", 8, chunk, 200),
+        (f"all-gather launch, k 1 x {chunk}", 1, chunk, 200),
+        (f"k 8 x {ALLREDUCE_ELEMS} (32 MiB in)", 8, ALLREDUCE_ELEMS, 50),
+        ("k 8 x 4194304 (128 MiB in)", 8, 1 << 22, 20),
+    ):
+        srcs = [torch.randn(n, device=dev, generator=gen) for _ in range(k)]
+        stacked = torch.stack(srcs)
+        dst = torch.empty(n, device=dev)
+        b_ms, b_by = bound(4 * (k + 1) * n, k * n)
+        shapes.append(dict(
+            at=label,
+            ms=time_ms(lambda: K.peer_reduce(dst, srcs), iters),
+            device_ms=kernel_device_ms(lambda: K.peer_reduce(dst, srcs),
+                                       iters, "peer_reduce_kernel"),
+            plain_ms=time_ms(lambda: K.peer_reduce_plain(dst, srcs), iters),
+            library_ms=time_ms(lambda: stacked.sum(0), iters),
+            bound_ms=b_ms, bound_by=b_by,
+        ))
+        del srcs, stacked, dst
+    timing["peer_reduce"] = dict(shapes[0], shapes=shapes)
+
     for kname, t in timing.items():
         for s in t.get("shapes", [t]):
             device = (f" (device {s['device_ms']:.4f} ms by the profiler)"
@@ -563,7 +667,125 @@ def main() -> int:
             f"fused fallbacks after the agent and local prober: {stats}")
     print(f"[agent] published {len(raw)} bytes; NodeReportProber: "
           f"{verdict.detail}; LocalDeviceProber: {local.detail}")
-    # -- 7. ring attention on the card ---------------------------------------
+    # -- 7. the host's collectives over 8 members of the card ---------------
+    members = [dev] * ICI_MEMBERS
+    collective_kernels = ("peer_reduce",)
+    t0 = time.perf_counter()
+    ar = on_path("ICI all-reduce probe, 8 members",
+                 lambda: ici_allreduce_probe(members), collective_kernels)
+    print(f"[collectives] ici_allreduce in {time.perf_counter() - t0:.2f} s: "
+          f"ok={ar.ok} {ar.detail} {json.dumps(ar.metrics)} (one card: the "
+          f"bus bandwidth reads HBM and L2, not a link) on {card}",
+          flush=True)
+    require(ar.ok and ar.detail.startswith("psum over 8 devices exact; "),
+            f"ici_allreduce: {ar.detail}")
+    rp = on_path("ICI ring probe, 8 members",
+                 lambda: ici_ring_probe(members), collective_kernels)
+    print(f"[collectives] ici_ring: ok={rp.ok} {rp.detail} latency "
+          f"{rp.latency_ms:.3f} ms on {card}", flush=True)
+    require(rp.ok and rp.detail == ("all 8 locally-received ring link(s) "
+                                    "verified (8-device ring)"),
+            f"ici_ring: {rp.detail}")
+
+    fallbacks = fused.battery_stats()["fallbacks"]
+    for attempt, hit in (("cold", 0.0), ("warm", 1.0)):
+        checks = on_path(
+            f"fused {attempt}, 8 members",
+            lambda: port.run_host_probe(members, fused=True, **PROD),
+            battery_kernels + collective_kernels,
+        )
+        m = checks[1].metrics
+        print(f"[collectives] fused {attempt} battery over 8 members, "
+              f"battery_execute_ms {m['battery_execute_ms']:.3f}, "
+              f"battery_compile_ms {m['battery_compile_ms']:.3f}, "
+              f"on {card}:")
+        all_ok(checks, f"fused battery over 8 members ({attempt})")
+        require([r.name for r in checks[3:]] == ["ici_allreduce", "ici_ring"],
+                f"fused over 8 members: {[r.name for r in checks]}")
+        require(checks[3].detail == "psum over 8 devices exact (4 rounds); "
+                "fused battery (bus bandwidth unmeasured)", checks[3].detail)
+        for r in checks[1:]:
+            require(r.metrics.get("fused") == 1.0, f"{r.name} is not fused")
+            require(r.metrics["battery_cache_hit"] == hit,
+                    f"{r.name}: battery_cache_hit != {hit}")
+    checks = on_path(
+        "unfused, 8 members",
+        lambda: port.run_host_probe(members, fused=False, **PROD),
+        battery_kernels + collective_kernels,
+    )
+    print(f"[collectives] unfused battery over 8 members on {card}:")
+    all_ok(checks, "unfused battery over 8 members")
+    local8 = on_path(
+        "local prober, 8 members",
+        lambda: port.LocalDeviceProber(members, **PROD).probe(group),
+        battery_kernels + collective_kernels,
+    )
+    require(local8.healthy, f"LocalDeviceProber over 8 members: "
+                            f"{local8.detail}")
+    require(fused.battery_stats()["fallbacks"] == fallbacks,
+            f"fused fallbacks over 8 members: {fused.battery_stats()}")
+    print(f"[collectives] LocalDeviceProber over 8 members: {local8.detail}",
+          flush=True)
+
+    # One injected fault: member 0 keeps its own value instead of
+    # receiving member 7's.
+    real_ring_shift = collectives.ring_shift
+
+    def member_0_keeps_its_value(shards):
+        outs = real_ring_shift(shards)
+        outs[0] = shards[0].clone()
+        return outs
+
+    collectives.ring_shift = member_0_keeps_its_value
+    try:
+        bad = on_path("ICI ring probe, member 0 keeps its value",
+                      lambda: ici_ring_probe(members), collective_kernels)
+    finally:
+        collectives.ring_shift = real_ring_shift
+    print(f"[collectives] injected ring fault: ok={bad.ok} {bad.detail}",
+          flush=True)
+    require(not bad.ok and bad.detail == "link 7->0 delivered 0.0, "
+            "expected 7.0" and bad.metrics["bad_links"] == 1.0,
+            f"injected ring fault: {bad}")
+
+    # One all-reduce round of the main path's shape on 8 members of the
+    # card: the host's time to enqueue it (the same Python, events and
+    # launches an 8-card board's round costs the host), and the round's
+    # time with the device's work, by CUDA events over back-to-back
+    # rounds.
+    shards = [torch.full((ALLREDUCE_ELEMS,), float(i + 1), device=dev)
+              for i in range(ICI_MEMBERS)]
+    for _ in range(5):
+        K.all_reduce(shards)
+    before = K.peer_reduce.launches
+    K.all_reduce(shards)
+    per_round = K.peer_reduce.launches - before
+    torch.cuda.synchronize()
+    rounds = 50
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        K.all_reduce(shards)
+    enqueue_ms = (time.perf_counter() - t0) / rounds * 1e3
+    torch.cuda.synchronize()
+    round_ms = time_ms(lambda: K.all_reduce(shards), rounds)
+    ring_round_ms = time_ms(lambda: K.ring_shift(shards), rounds)
+    moved = 2 * (ICI_MEMBERS - 1) / ICI_MEMBERS * 4 * ALLREDUCE_ELEMS
+    link_ms = moved / (NVLINK_GBPS * 1e9) * 1e3
+    ceiling_gbps = moved / (max(enqueue_ms, link_ms) * 1e-3) / 1e9
+    floor = resolve_floors(name)
+    print(f"[collectives] all-reduce round, {ICI_MEMBERS} members x "
+          f"{ALLREDUCE_ELEMS} fp32 on one card: host enqueue "
+          f"{enqueue_ms:.4f} ms, round {round_ms:.4f} ms by events, "
+          f"{per_round} K4 launches; ring shift round {ring_round_ms:.4f} "
+          f"ms; on {card}", flush=True)
+    print(f"[collectives] 8-card board: 2*7/8*4 MiB needs {link_ms:.4f} ms "
+          f"over {NVLINK_GBPS:.0f} GB/s links; the host's enqueue of "
+          f"{enqueue_ms:.4f} ms caps the bus bandwidth at "
+          f"{ceiling_gbps:.2f} GB/s against the ICI floor of "
+          f"{floor.ici_busbw_gbps if floor else 'n/a'} GB/s", flush=True)
+    del shards
+
+    # -- 8. ring attention on the card ---------------------------------------
     ring = [dev] * 8
     t0 = time.perf_counter()
     deep = on_path("deep probe, 8-member ring on one card",
@@ -615,7 +837,7 @@ def main() -> int:
             and checks[-1].detail == "single device; no ring to soak",
             f"deep check on one device: {checks[-1]}")
 
-    # -- 8. the canary -----------------------------------------------------
+    # -- 9. the canary -----------------------------------------------------
     def bench_canary():
         t0 = time.perf_counter()
         runner = C.CanaryRunner(C.CanaryConfig(**BENCH_CANARY), device=dev)
@@ -702,7 +924,7 @@ def main() -> int:
     print("[launches] main path total: "
           + ", ".join(f"{k} {n}" for k, n in launches.items()), flush=True)
 
-    # -- 9. kernel line, card, result --------------------------------------
+    # -- 10. kernel line, card, result --------------------------------------
     source = {
         "stream_increment_":
             "k8s_operator_libs_tpu_torch/kernels/csrc/battery_kernels.cu",
@@ -710,12 +932,15 @@ def main() -> int:
             "k8s_operator_libs_tpu_torch/kernels/csrc/battery_kernels.cu",
         "block_attention":
             "k8s_operator_libs_tpu_torch/kernels/csrc/attention_kernels.cu",
+        "peer_reduce":
+            "k8s_operator_libs_tpu_torch/kernels/csrc/collective_kernels.cu",
     }
     replaces = {
         "stream_increment_": "k8s_operator_libs_tpu/health/probes.py:517",
         "verify_stats": "k8s_operator_libs_tpu/health/fused.py:194",
         "block_attention":
             "k8s_operator_libs_tpu/workloads/ring_attention.py:55",
+        "peer_reduce": "k8s_operator_libs_tpu/health/probes.py:617",
     }
     kernels = [
         dict(

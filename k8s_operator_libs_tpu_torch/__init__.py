@@ -5,7 +5,9 @@ which stays the reference it is tested against.  It imports ``torch``,
 numpy and the standard library, never ``jax`` and nothing of the JAX
 package.  Ported so far: the node health battery and the report and
 prober layer around it (:mod:`.health`), with hand-written CUDA kernels
-for the HBM stream and the verification reductions; and the workloads
+for the HBM stream, the verification reductions and the host's
+collectives (a peer reduction across the GPUs of one host); and the
+workloads
 (:mod:`.workloads`) on one device: the canary train step and ring
 attention, whose block step is a hand-written CUDA kernel
 (:mod:`.kernels`).

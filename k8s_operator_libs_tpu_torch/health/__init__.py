@@ -3,8 +3,9 @@
 Counterpart of ``k8s_operator_libs_tpu.health``:
 
 - :mod:`probes`: the probe battery (device enumeration, tensor-core
-  matmul, HBM stream, fail-closed multi-GPU collectives, and the
-  ring-attention deep probe);
+  matmul, HBM stream, the host's all-reduce and ring collectives, the
+  ring-attention deep probe, and the fail-closed cross-host
+  collective);
 - :mod:`fused`: the battery enqueued as one body per device with one
   readback, behind a topology-keyed warm-up cache;
 - :mod:`report`: the per-host :class:`HealthReport` node annotation;

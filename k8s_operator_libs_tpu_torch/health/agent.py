@@ -4,8 +4,9 @@ Counterpart of ``k8s_operator_libs_tpu.health.agent`` for one GPU host:
 each cycle it runs the battery on the host's CUDA devices and publishes
 the resulting :class:`~.report.HealthReport` as a node annotation, where
 the controller-side ``NodeReportProber`` (either package's) reads it.
-This slice runs one process per host; multi-host coordination
-(``maybe_initialize_distributed``) comes with the collectives.
+One process drives every GPU of the host, its collectives included;
+multi-host coordination (``maybe_initialize_distributed``) comes with
+the cross-host collectives.
 
 Run in the validation DaemonSet as
 ``python -m k8s_operator_libs_tpu_torch.health.agent``.
@@ -53,6 +54,7 @@ class HealthAgent:
         slice_wide: bool = False,
         matmul_n: int = 4096,
         hbm_mib: int = 1024,
+        allreduce_elems: int = 1 << 20,
         deep: bool = False,
         max_iters: Optional[int] = None,
         dcn_peers: Optional[Sequence[str]] = None,
@@ -67,6 +69,7 @@ class HealthAgent:
         self.slice_wide = slice_wide
         self.matmul_n = matmul_n
         self.hbm_mib = hbm_mib
+        self.allreduce_elems = allreduce_elems
         self.deep = deep
         # Sustained-measurement iteration cap; None = the probes' default.
         self.max_iters = max_iters
@@ -82,6 +85,7 @@ class HealthAgent:
             self.devices,
             matmul_n=self.matmul_n,
             hbm_mib=self.hbm_mib,
+            allreduce_elems=self.allreduce_elems,
             deep=self.deep,
             dcn_peers=self.dcn_peers,
             dcn_expected_groups=self.dcn_expected_groups,

@@ -10,15 +10,19 @@ with no host synchronisation until the end:
 - ``HBM_CHAIN_ITERS`` launches of the ``stream_increment_`` kernel over
   the ``hbm_mib`` buffer;
 - the ``verify_stats`` kernel on C (center 0.5) and on x;
-- then one host readback of the six verification scalars.
+- with two or more devices, ``PSUM_ROUNDS`` chained all-reduces
+  ``s ← all_reduce(s) / n`` of the ramp (member i holds i+1, so every
+  round after the first gives (n+1)/2 exactly) and one +1 ring shift,
+  the host's collectives of
+  :mod:`~k8s_operator_libs_tpu_torch.kernels.collectives` (kernel K4);
+- then one host readback per member of its verification scalars, its
+  first all-reduced element and its ring value.
 
 The cache entry takes the place of XLA's ahead-of-time compile: a miss
 builds or loads the kernel library and runs the body once at the key's
 shapes (warming cuBLAS and the caching allocator), and reports that time
 as ``battery_compile_ms``; a hit reports 0.  The per-check decomposition
 and detail strings are the JAX package's, so verdicts read the same.
-With two or more devices the ICI checks fail closed until the
-collectives are ported.
 """
 
 from __future__ import annotations
@@ -31,13 +35,13 @@ from typing import Optional, Sequence
 import torch
 
 from k8s_operator_libs_tpu_torch.health.probes import (
-    COLLECTIVES_NOT_PORTED,
     CheckResult,
     device_kind,
     exact_bf16_matmul,
     resolve_floors,
 )
 from k8s_operator_libs_tpu_torch.kernels import (
+    collectives,
     load_library,
     stream_increment_,
     verify_stats,
@@ -49,6 +53,7 @@ BATTERY_VERSION = 1
 # Static chain lengths (never timing-derived), as in the JAX package.
 MATMUL_CHAIN_ITERS = 8
 HBM_CHAIN_ITERS = 8
+PSUM_ROUNDS = 4
 
 
 @dataclass(frozen=True)
@@ -62,6 +67,7 @@ class BatteryKey:
     process_layout: tuple[int, ...]
     matmul_n: int
     hbm_mib: int
+    allreduce_elems: int
     skip_ici: bool
 
 
@@ -69,6 +75,7 @@ def battery_key(
     devices: Sequence[torch.device],
     matmul_n: int,
     hbm_mib: int,
+    allreduce_elems: int,
     skip_ici: bool,
 ) -> BatteryKey:
     kinds = sorted({device_kind(d) for d in devices})
@@ -79,6 +86,7 @@ def battery_key(
         process_layout=(len(devices),),
         matmul_n=matmul_n,
         hbm_mib=hbm_mib,
+        allreduce_elems=allreduce_elems,
         skip_ici=skip_ici,
     )
 
@@ -117,14 +125,19 @@ def reset_battery_cache() -> None:
             _STATS[k] = 0.0 if k.startswith("last_") else 0
 
 
-def _build_inputs(key: BatteryKey, device: torch.device):
-    """(a, b, x) on ``device``: A = 0.5, B = 1/n, x = 0."""
+def _build_inputs(key: BatteryKey, device: torch.device, member: int):
+    """Member ``member``'s (a, b, x, ramp, ring) on ``device``: A = 0.5,
+    B = 1/n, x = 0, the ramp's constant member+1 and the ring's value
+    member."""
     n = key.matmul_n
     elems = max(1, (key.hbm_mib * 1024 * 1024) // 4)
     a = torch.full((n, n), 0.5, dtype=torch.bfloat16, device=device)
     b = torch.full((n, n), 1.0 / n, dtype=torch.bfloat16, device=device)
     x = torch.zeros(elems, dtype=torch.float32, device=device)
-    return a, b, x
+    ramp = torch.full((key.allreduce_elems,), float(member + 1),
+                      device=device)
+    ring = torch.full((1,), float(member), device=device)
+    return a, b, x, ramp, ring
 
 
 def _battery_body(a, b, x) -> torch.Tensor:
@@ -136,6 +149,28 @@ def _battery_body(a, b, x) -> torch.Tensor:
     for _ in range(HBM_CHAIN_ITERS):
         stream_increment_(x)
     return torch.cat([verify_stats(c, 0.5), verify_stats(x, 0.0)])
+
+
+def _run(key: BatteryKey, inputs: list) -> list[list[float]]:
+    """Enqueue every member's body, then the collectives, and read back
+    each member's row: the six body scalars, its first all-reduced
+    element and its ring value."""
+    with exact_bf16_matmul():
+        stats = [_battery_body(a, b, x) for a, b, x, _, _ in inputs]
+    s = [inp[3] for inp in inputs]
+    ring = [inp[4] for inp in inputs]
+    n_dev = len(inputs)
+    if not key.skip_ici and n_dev >= 2:
+        # Chained rounds s ← all_reduce(s) / n: (n+1)/2 after the first,
+        # a fixed point after; every value is exact in fp32.
+        for _ in range(PSUM_ROUNDS):
+            s = collectives.all_reduce(s, divisor=float(n_dev))
+        ring = collectives.ring_shift(ring)
+    # One readback per member is the synchronisation.
+    return [
+        torch.cat([st, si[:1], ri]).tolist()
+        for st, si, ri in zip(stats, s, ring)
+    ]
 
 
 def _prepare(
@@ -151,10 +186,7 @@ def _prepare(
     t0 = time.perf_counter()
     if any(d.type == "cuda" for d in devices):
         load_library()
-    with exact_bf16_matmul():
-        outs = [_battery_body(*_build_inputs(key, d)) for d in devices]
-    for out in outs:
-        out.tolist()
+    _run(key, [_build_inputs(key, d, i) for i, d in enumerate(devices)])
     compile_ms = (time.perf_counter() - t0) * 1e3
     with _LOCK:
         _CACHE[key] = compile_ms
@@ -167,6 +199,7 @@ def run_fused_battery(
     devices: Sequence[torch.device],
     matmul_n: int = 4096,
     hbm_mib: int = 1024,
+    allreduce_elems: int = 1 << 20,
     skip_ici: bool = False,
 ) -> list[CheckResult]:
     """Run the fused battery; returns the mxu_matmul / hbm_bandwidth
@@ -181,21 +214,20 @@ def run_fused_battery(
         raise ValueError(
             f"fused battery needs power-of-two matmul_n, got {matmul_n}"
         )
-    key = battery_key(devs, matmul_n, hbm_mib, skip_ici)
+    key = battery_key(devs, matmul_n, hbm_mib, allreduce_elems, skip_ici)
     compile_ms = _prepare(key, devs)
 
-    inputs = [_build_inputs(key, d) for d in devs]
+    inputs = [_build_inputs(key, d, i) for i, d in enumerate(devs)]
     t0 = time.perf_counter()
-    with exact_bf16_matmul():
-        outs = [_battery_body(*inp) for inp in inputs]
-    # Reading the verification scalars back is the synchronisation.
-    rows = [out.tolist() for out in outs]
+    rows = _run(key, inputs)
     execute_ms = (time.perf_counter() - t0) * 1e3
     with _LOCK:
         _STATS["last_execute_ms"] = execute_ms
     mm_rows = [(i, r[2]) for i, r in enumerate(rows)]
     hbm_min_rows = [(i, r[3]) for i, r in enumerate(rows)]
     hbm_max_rows = [(i, r[4]) for i, r in enumerate(rows)]
+    psum_rows = [(i, r[6]) for i, r in enumerate(rows)]
+    ring_rows = [(i, r[7]) for i, r in enumerate(rows)]
 
     battery_metrics = {
         "fused": 1.0,
@@ -278,6 +310,7 @@ def run_fused_battery(
     if skip_ici:
         return results
 
+    # -- ici_allreduce ------------------------------------------------
     if n_dev < 2:
         results.append(
             result(
@@ -287,6 +320,33 @@ def run_fused_battery(
                 {"devices": float(n_dev)},
             )
         )
+    else:
+        want = (n_dev + 1) / 2.0  # fixed point of the chained all-reduce
+        bad_psum = [(row, v) for row, v in psum_rows if v != want]
+        if bad_psum:
+            row, got = bad_psum[0]
+            results.append(
+                result(
+                    "ici_allreduce",
+                    False,
+                    f"psum mismatch on device {row}: expected {want}, "
+                    f"got {got}",
+                    {"devices": float(n_dev), "iters": float(PSUM_ROUNDS)},
+                )
+            )
+        else:
+            results.append(
+                result(
+                    "ici_allreduce",
+                    True,
+                    f"psum over {n_dev} devices exact ({PSUM_ROUNDS} "
+                    "rounds); fused battery (bus bandwidth unmeasured)",
+                    {"devices": float(n_dev), "iters": float(PSUM_ROUNDS)},
+                )
+            )
+
+    # -- ici_ring -----------------------------------------------------
+    if n_dev < 2:
         results.append(
             result(
                 "ici_ring",
@@ -296,12 +356,30 @@ def run_fused_battery(
             )
         )
     else:
-        for name in ("ici_allreduce", "ici_ring"):
+        bad_ring = [
+            (row, v) for row, v in ring_rows if v != float((row - 1) % n_dev)
+        ]
+        if bad_ring:
+            row, got = bad_ring[0]
             results.append(
                 result(
-                    name,
+                    "ici_ring",
                     False,
-                    f"{n_dev} devices: {COLLECTIVES_NOT_PORTED}",
+                    f"link {(row - 1) % n_dev}->{row} delivered {got}, "
+                    f"expected {float((row - 1) % n_dev)}",
+                    {
+                        "devices": float(n_dev),
+                        "bad_links": float(len(bad_ring)),
+                    },
+                )
+            )
+        else:
+            results.append(
+                result(
+                    "ici_ring",
+                    True,
+                    f"all {len(ring_rows)} locally-received ring link(s) "
+                    f"verified ({n_dev}-device ring)",
                     {"devices": float(n_dev)},
                 )
             )

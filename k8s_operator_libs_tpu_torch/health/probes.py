@@ -14,9 +14,13 @@ messages, so reports from either package read the same:
 - **hbm_bandwidth**: the ``stream_increment_`` kernel moves the whole
   buffer once per pass at a sane rate and every value equals the pass
   count;
-- **ici_allreduce / ici_ring**: with one device they pass vacuously, as
-  in the JAX package; with two or more they fail closed, because the
-  multi-GPU collectives are not ported yet;
+- **ici_allreduce / ici_ring**: the host's collectives
+  (:mod:`~k8s_operator_libs_tpu_torch.kernels.collectives`, kernel K4)
+  over every device, one process driving them all as the JAX package's
+  local mesh does: the all-reduce of a ramp must give n(n+1)/2 exactly,
+  with its sustained bus bandwidth, and a +1 ring shift must leave
+  member i holding i-1, naming the bad link otherwise; vacuous on one
+  device, as in the JAX package;
 - **ici_ring_attention** (the deep probe): ring attention over every
   device (:mod:`~k8s_operator_libs_tpu_torch.workloads.ring_attention`,
   block kernel K3) against single-device full attention; vacuous on one
@@ -44,13 +48,13 @@ import torch
 from k8s_operator_libs_tpu_torch.consts import get_logger
 from k8s_operator_libs_tpu_torch.fleet.profiles import generation_profile
 from k8s_operator_libs_tpu_torch.hw import chip_spec, mfu
-from k8s_operator_libs_tpu_torch.kernels import stream_increment_, verify_stats
+from k8s_operator_libs_tpu_torch.kernels import (
+    collectives,
+    stream_increment_,
+    verify_stats,
+)
 
 logger = get_logger(__name__)
-
-COLLECTIVES_NOT_PORTED = (
-    "multi-GPU collectives are not ported yet; failing closed"
-)
 
 
 @dataclass
@@ -190,10 +194,27 @@ class InconclusiveTiming(RuntimeError):
         self.applied = applied
 
 
-def _sync_readback(out: torch.Tensor) -> None:
-    """Wait for ``out`` by reading one element back to the host: the
-    copy cannot complete before the kernels that produce it."""
-    out.reshape(-1)[:1].item()
+def _sync_readback(out) -> None:
+    """Wait for ``out`` (a tensor, or one per member of a collective) by
+    reading one element of each back to the host: a copy cannot complete
+    before the kernels that produce it, so every member is synchronised."""
+    for t in out if isinstance(out, (list, tuple)) else (out,):
+        t.reshape(-1)[:1].item()
+
+
+def _timed(fn, *args) -> tuple[float, object]:
+    """Run ``fn`` once as a warm-up, then time one synchronised call."""
+    out = fn(*args)
+    _sync_readback(out)
+    t0 = time.perf_counter()
+    out = fn(*args)
+    _sync_readback(out)
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def _members_numpy(out) -> np.ndarray:
+    """[n, elems] on the host from one tensor per member."""
+    return np.stack([t.reshape(-1).cpu().numpy() for t in out])
 
 
 def _timed_sustained(
@@ -484,9 +505,16 @@ def hbm_bandwidth_probe(
 
 def ici_allreduce_probe(
     devices: Optional[Sequence[torch.device]] = None,
+    per_device_elems: int = 1 << 20,
+    min_time_s: float = DEFAULT_MIN_TIME_S,
+    max_iters: int = _MAX_SUSTAINED_ITERS,
 ) -> CheckResult:
-    """All-reduce across every device: vacuous on one device, fail-closed
-    on two or more until the collectives are ported."""
+    """All-reduce across every device.
+
+    Member ``i`` contributes the constant ``i+1``, so every element of
+    every member's result must equal ``n(n+1)/2`` exactly.  Bus bandwidth
+    is measured over a sustained run (the same input re-reduced back to
+    back), with the JAX package's formula."""
     devs = list(devices) if devices is not None else cuda_devices()
     n = len(devs)
     if n < 2:
@@ -494,17 +522,64 @@ def ici_allreduce_probe(
             "ici_allreduce", True, 0.0, "single device; no ICI to probe",
             {"devices": float(n)},
         )
+    expected = n * (n + 1) / 2.0
+    inconclusive = ""
+    try:
+        # The ramp: member i holds the constant i+1.
+        shards = [
+            torch.full((per_device_elems,), float(i + 1), device=d)
+            for i, d in enumerate(devs)
+        ]
+        latency_ms, out, iters = _timed_sustained(
+            lambda x: collectives.all_reduce(x), (shards,),
+            min_time_s=min_time_s, max_iters=max_iters,
+        )
+        got = _members_numpy(out)
+    except InconclusiveTiming as e:
+        latency_ms, out, iters = 0.0, e.out, e.applied
+        got = _members_numpy(out)
+        inconclusive = str(e)
+    except Exception as e:  # noqa: BLE001 — any device fault fails the check
+        return CheckResult(
+            "ici_allreduce", False, 0.0, f"all-reduce failed: {e}"
+        )
+    if not np.all(got == expected):
+        return CheckResult(
+            "ici_allreduce", False, latency_ms,
+            f"psum mismatch: expected {expected}, got "
+            f"[{got.min()}, {got.max()}]",
+            {"devices": float(n), "iters": float(iters)},
+        )
+    if inconclusive:
+        return CheckResult(
+            "ici_allreduce", True, 0.0,
+            f"psum over {n} devices exact ({iters} rounds); bus bandwidth "
+            f"unmeasured: {inconclusive}",
+            {
+                "devices": float(n),
+                "iters": float(iters),
+                "timing_inconclusive": 1.0,
+            },
+        )
+    # A ring all-reduce moves 2(n-1)/n of the buffer over each link.
+    shard_bytes = per_device_elems * 4
+    busbw = (2.0 * (n - 1) / n) * shard_bytes / (latency_ms * 1e-3) / 1e9
     return CheckResult(
-        "ici_allreduce", False, 0.0,
-        f"{n} devices: {COLLECTIVES_NOT_PORTED}", {"devices": float(n)},
+        "ici_allreduce",
+        True,
+        latency_ms,
+        f"psum over {n} devices exact; {busbw:.1f} GB/s bus bandwidth "
+        f"sustained over {iters} rounds",
+        {"devices": float(n), "busbw_gbps": busbw, "iters": float(iters)},
     )
 
 
 def ici_ring_probe(
     devices: Optional[Sequence[torch.device]] = None,
 ) -> CheckResult:
-    """Per-link ring send: vacuous on one device, fail-closed on two or
-    more until the collectives are ported."""
+    """Per-link verification: shift every member's value to its +1 ring
+    neighbour; member ``i`` must then hold ``i-1 (mod n)``.  A failure
+    names the first broken link."""
     devs = list(devices) if devices is not None else cuda_devices()
     n = len(devs)
     if n < 2:
@@ -512,9 +587,37 @@ def ici_ring_probe(
             "ici_ring", True, 0.0, "single device; no links to probe",
             {"devices": float(n)},
         )
+    try:
+        shards = [
+            torch.full((1,), float(i), device=d) for i, d in enumerate(devs)
+        ]
+        latency_ms, out = _timed(lambda x: collectives.ring_shift(x), shards)
+        bad: list[tuple[int, float]] = []
+        checked = 0
+        for row, vals in enumerate(_members_numpy(out)):
+            for got_v in vals:
+                checked += 1
+                if got_v != float((row - 1) % n):
+                    bad.append((row, float(got_v)))
+    except Exception as e:  # noqa: BLE001 — any device fault fails the check
+        return CheckResult("ici_ring", False, 0.0, f"ppermute failed: {e}")
+    if bad:
+        first, got_v = bad[0]
+        return CheckResult(
+            "ici_ring",
+            False,
+            latency_ms,
+            f"link {(first - 1) % n}->{first} delivered {got_v}, "
+            f"expected {float((first - 1) % n)}",
+            {"devices": float(n), "bad_links": float(len(bad))},
+        )
     return CheckResult(
-        "ici_ring", False, 0.0,
-        f"{n} devices: {COLLECTIVES_NOT_PORTED}", {"devices": float(n)},
+        "ici_ring",
+        True,
+        latency_ms,
+        f"all {checked} locally-received ring link(s) verified "
+        f"({n}-device ring)",
+        {"devices": float(n)},
     )
 
 
@@ -608,11 +711,12 @@ def dcn_reachability_probe(
 
 
 def dcn_collective_probe() -> CheckResult:
-    """The cross-host all-reduce gate: fail-closed until the collectives
-    are ported."""
+    """The cross-host all-reduce gate: fail-closed until the cross-host
+    collectives (``torch.distributed`` across hosts) are ported."""
     return CheckResult(
         "dcn_collective", False, 0.0,
-        f"cross-host all-reduce: {COLLECTIVES_NOT_PORTED}",
+        "cross-host all-reduce: not ported yet (torch.distributed across "
+        "hosts); failing closed",
     )
 
 
@@ -628,6 +732,7 @@ def run_host_probe(
     expected_devices: int = 0,
     matmul_n: int = 4096,
     hbm_mib: int = 1024,
+    allreduce_elems: int = 1 << 20,
     skip_ici: bool = False,
     deep: bool = False,
     min_time_s: float = DEFAULT_MIN_TIME_S,
@@ -640,7 +745,8 @@ def run_host_probe(
     """Run the full probe battery; returns every check's result.
 
     Same contract as the JAX package's ``run_host_probe``: production
-    defaults (n=4096 bf16 matmuls, a 1 GiB stream), fail fast on
+    defaults (n=4096 bf16 matmuls, a 1 GiB stream, a 4 MiB all-reduce
+    ramp per device), fail fast on
     enumeration, then the fused battery (``health.fused``) with the
     unfused probes as fallback, stamping the same ``battery_*`` parity
     keys either way; ``on_check`` is called as each check completes.
@@ -679,6 +785,7 @@ def run_host_probe(
                 devs,
                 matmul_n=matmul_n,
                 hbm_mib=hbm_mib,
+                allreduce_elems=allreduce_elems,
                 skip_ici=skip_ici,
             )
         except Exception as e:  # noqa: BLE001 — unfused is the fallback
@@ -713,7 +820,14 @@ def run_host_probe(
             )
         )
         if not skip_ici:
-            battery_checks.append(ici_allreduce_probe(devs))
+            battery_checks.append(
+                ici_allreduce_probe(
+                    devs,
+                    per_device_elems=allreduce_elems,
+                    min_time_s=min_time_s,
+                    max_iters=max_iters,
+                )
+            )
             battery_checks.append(ici_ring_probe(devs))
         execute_ms = (time.perf_counter() - t0) * 1e3
         # Telemetry parity with the fused battery: the same battery_*

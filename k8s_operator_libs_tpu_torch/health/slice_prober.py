@@ -53,12 +53,14 @@ class LocalDeviceProber:
         expected_devices: int = 0,
         matmul_n: int = 4096,
         hbm_mib: int = 1024,
+        allreduce_elems: int = 1 << 20,
         fused: Optional[bool] = None,
     ) -> None:
         self.devices = list(devices) if devices is not None else None
         self.expected_devices = expected_devices
         self.matmul_n = matmul_n
         self.hbm_mib = hbm_mib
+        self.allreduce_elems = allreduce_elems
         self.fused = fused
 
     def probe(self, group) -> ProbeResult:
@@ -67,6 +69,7 @@ class LocalDeviceProber:
             expected_devices=self.expected_devices,
             matmul_n=self.matmul_n,
             hbm_mib=self.hbm_mib,
+            allreduce_elems=self.allreduce_elems,
             fused=self.fused,
         )
         # The battery ran once in-process, so every member host gets the

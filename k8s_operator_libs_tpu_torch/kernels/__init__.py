@@ -2,7 +2,10 @@
 
 - :mod:`.battery`: K1 ``stream_increment_`` and K2 ``verify_stats``
   (``csrc/battery_kernels.cu``);
-- :mod:`.attention`: K3 ``block_attention`` (``csrc/attention_kernels.cu``).
+- :mod:`.attention`: K3 ``block_attention`` (``csrc/attention_kernels.cu``);
+- :mod:`.collectives`: K4 ``peer_reduce`` (``csrc/collective_kernels.cu``)
+  and the host's collectives built on it, ``all_reduce`` and
+  ``ring_shift``.
 
 ``launch_counts()`` reads every wrapper's launch count and
 ``reset_launch_counts()`` zeroes them.
@@ -19,8 +22,14 @@ from k8s_operator_libs_tpu_torch.kernels.battery import (
     verify_stats_plain,
 )
 from k8s_operator_libs_tpu_torch.kernels.build import load_library
+from k8s_operator_libs_tpu_torch.kernels.collectives import (
+    all_reduce,
+    peer_reduce,
+    peer_reduce_plain,
+    ring_shift,
+)
 
-KERNELS = (stream_increment_, verify_stats, block_attention)
+KERNELS = (stream_increment_, verify_stats, block_attention, peer_reduce)
 
 
 def launch_counts() -> dict[str, int]:
@@ -35,11 +44,15 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "KERNELS",
+    "all_reduce",
     "block_attention",
     "block_attention_plain",
     "launch_counts",
     "load_library",
+    "peer_reduce",
+    "peer_reduce_plain",
     "reset_launch_counts",
+    "ring_shift",
     "stream_increment_",
     "stream_increment_plain_",
     "verify_stats",

@@ -125,6 +125,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i, vp,  # device, stream
     ]
     lib.attention_block_f32.restype = i
+    lib.collective_peer_enable.argtypes = [i, i]
+    lib.collective_peer_enable.restype = i
+    lib.collective_peer_reduce.argtypes = [
+        ctypes.POINTER(vp), i, sz, sz, vp, f,  # srcs, k, off, len, dst, divisor
+        i, vp,  # device, stream
+    ]
+    lib.collective_peer_reduce.restype = i
     return lib
 
 

@@ -39,6 +39,7 @@ from k8s_operator_libs_tpu_torch.health import (  # noqa: E402
 )
 from k8s_operator_libs_tpu_torch.health import fused as tfused  # noqa: E402
 from k8s_operator_libs_tpu_torch.health.agent import HealthAgent  # noqa: E402
+from k8s_operator_libs_tpu_torch.kernels import collectives  # noqa: E402
 from k8s_operator_libs_tpu_torch.upgrade import UpgradeKeys as PortKeys  # noqa: E402
 from tests.fixtures import (  # noqa: E402
     DRIVER_LABELS,
@@ -49,10 +50,7 @@ from tests.fixtures import (  # noqa: E402
 
 KEYS = UpgradeKeys()
 CPU = torch.device("cpu")
-SMALL = dict(matmul_n=128, hbm_mib=1)
-# The JAX battery also sizes its all-reduce ramp; the port fails its
-# collectives closed and has no such knob.
-JAX_SMALL = dict(SMALL, allreduce_elems=128)
+SMALL = dict(matmul_n=128, hbm_mib=1, allreduce_elems=128)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -116,7 +114,7 @@ def _roll(prober) -> dict[str, list[str]]:
 
 def test_roll_gated_by_port_prober_walks_the_same_states(cpu_devices):
     port = _roll(PortLocalProber(devices=[CPU], **SMALL))
-    ref = _roll(JaxLocalProber(devices=cpu_devices[:1], **JAX_SMALL))
+    ref = _roll(JaxLocalProber(devices=cpu_devices[:1], **SMALL))
     assert port == ref
     for states in port.values():
         assert UpgradeState.VALIDATION_REQUIRED.value in states
@@ -139,7 +137,7 @@ def test_local_probers_agree(cpu_devices, expected_devices):
     ).probe(group)
     ref = JaxLocalProber(
         devices=cpu_devices[:1], expected_devices=expected_devices,
-        **JAX_SMALL,
+        **SMALL,
     ).probe(group)
     assert (port.healthy, port.detail) == (ref.healthy, ref.detail)
     assert port.healthy == (expected_devices == 0)
@@ -173,6 +171,12 @@ def _published(case: str):
         cluster.patch_node_annotations(
             "host-0", {KEYS.health_report_annotation: "{bad"}
         )
+    elif case == "failed_check":
+        # A host whose ring drops traffic: member 0 keeps its own value.
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(collectives, "ring_shift",
+                       lambda shards: [s.clone() for s in shards])
+            agent.run_once()
     elif case != "missing":
         agent.run_once()
     if case == "wrong_revision":
@@ -195,7 +199,8 @@ def _published(case: str):
         ("missing", False, "no health report from node host-0"),
         ("stale", False, "stale"),
         ("wrong_revision", False, "revision old, want new"),
-        ("failed_check", False, "ici_allreduce: 2 devices"),
+        ("failed_check", False,
+         "ici_ring: link 1->0 delivered 0.0, expected 1.0"),
         ("chip_count", False, "host enumerates 1 chips, expected 4"),
         ("malformed", False, "malformed health report"),
     ],

@@ -7,7 +7,11 @@ compute the same operations.  K3 (``block_attention``) is held on the
 card within the tolerances ``chip_smoke.py`` states for it: m 1e-4
 absolute, l 1e-4 relative, num 5e-2 absolute (bf16 rounding of p after
 fp32 sums taken in another order); its plain version is held against
-the JAX package in ``tests/test_torch_ring_attention.py``.
+the JAX package in ``tests/test_torch_ring_attention.py``.  K4
+(``peer_reduce``) is held on the card bit for bit: fp32 adds in index
+order and an IEEE division in both; its plain version and the
+collectives built on it are held against the JAX package in
+``tests/test_torch_collectives.py``.
 """
 
 from __future__ import annotations
@@ -18,10 +22,15 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from k8s_operator_libs_tpu_torch.kernels import (  # noqa: E402
+    all_reduce,
     block_attention,
     block_attention_plain,
     build,
+    collectives,
     launch_counts,
+    peer_reduce,
+    peer_reduce_plain,
+    ring_shift,
     stream_increment_,
     stream_increment_plain_,
     verify_stats,
@@ -134,7 +143,7 @@ def test_wrappers_reject_noncontiguous_and_empty(bad, which):
 def test_build_targets_sm90a_and_binds_every_entry_point():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert [p.name for p in build.SOURCES] == [
-        "attention_kernels.cu", "battery_kernels.cu",
+        "attention_kernels.cu", "battery_kernels.cu", "collective_kernels.cu",
     ]
     src = "".join(p.read_text() for p in build.SOURCES)
     for symbol in (
@@ -143,8 +152,14 @@ def test_build_targets_sm90a_and_binds_every_entry_point():
         "battery_verify_stats_bf16",
         "battery_error_string",
         "attention_block_f32",
+        "collective_peer_enable",
+        "collective_peer_reduce",
     ):
         assert f"{symbol}(" in src
+    # K4's cap on sources has one value on both sides of the binding.
+    assert (
+        f"constexpr int kMaxSources = {collectives.MAX_SOURCES};" in src
+    )
     # The build writes into a directory git ignores.
     ignored = (build.BUILD_DIR.parents[1] / ".gitignore").read_text()
     assert "build/torch_kernels/" in ignored.split()
@@ -212,3 +227,107 @@ def test_block_attention_matches_plain_version_on_the_card():
     with pytest.raises(ValueError):
         block_attention(q[..., :4].contiguous(), k[..., :4].contiguous(),
                         v[..., :4].contiguous())
+
+
+@pytest.mark.cuda
+def test_peer_reduce_matches_plain_version_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def same(got, want):
+        torch.cuda.synchronize()
+        assert torch.equal(got.isnan(), want.isnan())
+        keep = ~got.isnan()
+        assert torch.equal(got[keep].view(torch.int32),
+                           want[keep].view(torch.int32))
+
+    before = peer_reduce.launches
+    launches = 0
+    # (len, source offset, dst offset): aligned, unaligned alike,
+    # unaligned apart, tiny.
+    for k in (1, 2, 3, 5, 8):
+        for n, off, doff in ((1 << 20, 0, 0), (1_000_003, 3, 3),
+                             (1_000_003, 1, 0), (7, 2, 1)):
+            srcs = [torch.randn(n + off, device=dev, generator=gen)
+                    for _ in range(k)]
+            srcs[k - 1][off + n // 2] = float("nan")
+            dst = torch.empty(n + doff, device=dev)[doff:]
+            want = torch.empty(n, device=dev)
+            peer_reduce(dst, srcs, off, 3.0)
+            peer_reduce_plain(want, srcs, off, 3.0)
+            launches += 1
+            same(dst, want)
+            assert dst[n // 2].isnan()
+    assert peer_reduce.launches == before + launches
+    with pytest.raises(ValueError):
+        peer_reduce(dst, srcs * 2)
+    for n in (2, 3, 8):
+        shards = [torch.randn(1001, device=dev, generator=gen)
+                  for _ in range(n)]
+        want = torch.empty(1001, device=dev)
+        peer_reduce_plain(want, shards, 0, float(n))
+        for out in all_reduce(shards, float(n)):
+            same(out, want)
+        ring = ring_shift(shards)
+        for j in range(n):
+            same(ring[j], shards[j - 1])
+
+
+@pytest.mark.cuda
+def test_collectives_across_cards():
+    """The host's collectives over real peers: K4 reading other cards'
+    buffers through peer access, the all-reduce and ring across every
+    card (and a list that repeats cards), and both ICI probes."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    from k8s_operator_libs_tpu_torch.health import probes
+
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    gen = torch.Generator()
+    gen.manual_seed(0)
+
+    def same(got, want):
+        torch.cuda.synchronize()
+        got, want = got.cpu(), want.cpu()
+        assert torch.equal(got.isnan(), want.isnan())
+        keep = ~got.isnan()
+        assert torch.equal(got[keep].view(torch.int32),
+                           want[keep].view(torch.int32))
+
+    prev = torch.cuda.current_device()
+    srcs = [torch.randn(1_000_003, generator=gen).to(d) for d in cards]
+    for dst_card in (cards[0], cards[-1]):
+        dst = torch.empty(1_000_000, device=dst_card)
+        want = torch.empty(1_000_000, device=dst_card)
+        peer_reduce(dst, srcs[:8], off=3, divisor=3.0)
+        peer_reduce_plain(want, srcs[:8], off=3, divisor=3.0)
+        same(dst, want)
+    assert torch.cuda.current_device() == prev
+    repeated = cards[:-1] + cards[:1]
+    for members in (cards, repeated, [cards[1], cards[0]] * 2):
+        n = len(members)
+        for elems in (1 << 20, 1001):
+            host = torch.randn(n, elems, generator=gen)
+            shards = [host[i].to(d) for i, d in enumerate(members)]
+            want = torch.empty(elems)
+            peer_reduce_plain(want, list(host), 0, float(n))
+            outs = all_reduce(shards, float(n))
+            for out, d in zip(outs, members):
+                assert out.device == d
+                same(out, want)
+            ring = ring_shift(shards)
+            for j in range(n):
+                same(ring[j], host[j - 1])
+    assert torch.cuda.current_device() == prev
+    ar = probes.ici_allreduce_probe(cards)
+    assert ar.ok, ar.detail
+    rp = probes.ici_ring_probe(cards)
+    assert rp.ok, rp.detail
+    for fused in (True, False):
+        checks = probes.run_host_probe(cards, matmul_n=1024, hbm_mib=64,
+                                       fused=fused, max_iters=64)
+        assert all(c.ok for c in checks), [c.detail for c in checks]
+        assert checks[1].metrics["fused"] == float(fused)

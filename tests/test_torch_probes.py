@@ -27,12 +27,10 @@ from k8s_operator_libs_tpu_torch import hw  # noqa: E402
 from k8s_operator_libs_tpu_torch.fleet import profiles  # noqa: E402
 from k8s_operator_libs_tpu_torch.health import fused as tfused  # noqa: E402
 from k8s_operator_libs_tpu_torch.health import probes as tprobes  # noqa: E402
+from k8s_operator_libs_tpu_torch.kernels import collectives  # noqa: E402
 
 CPU = torch.device("cpu")
-SMALL = dict(matmul_n=128, hbm_mib=1)
-# The JAX battery also sizes its all-reduce ramp; the port fails its
-# collectives closed and has no such knob.
-JAX_SMALL = dict(SMALL, allreduce_elems=128)
+SMALL = dict(matmul_n=128, hbm_mib=1, allreduce_elems=128)
 # Caps the sustained-timing escalation: the figures are not compared,
 # and under a loaded test host the estimator would escalate to its cap.
 FAST = dict(max_iters=64)
@@ -129,7 +127,7 @@ def test_single_device_ici_results_are_word_for_word(jax_dev):
 def test_run_host_probe_parity(jax_dev, fused, skip_ici, expected_devices):
     kw = dict(**FAST, fused=fused, skip_ici=skip_ici,
               expected_devices=expected_devices)
-    j = jprobes.run_host_probe(jax_dev, **JAX_SMALL, **kw)
+    j = jprobes.run_host_probe(jax_dev, **SMALL, **kw)
     t = tprobes.run_host_probe([CPU], **SMALL, **kw)
     assert _shape(t, details=fused) == _shape(j, details=fused)
     assert all(c.ok for c in t[1:])
@@ -139,7 +137,7 @@ def test_run_host_probe_parity(jax_dev, fused, skip_ici, expected_devices):
 def test_fused_battery_details_and_cache(jax_dev):
     keys = STATIC + ("iters",)
     for hit in (0.0, 1.0):
-        j = jfused.run_fused_battery(jax_dev, **JAX_SMALL)
+        j = jfused.run_fused_battery(jax_dev, **SMALL)
         t = tfused.run_fused_battery([CPU], **SMALL)
         assert _shape(t, True, keys) == _shape(j, True, keys)
         assert all(c.metrics["battery_cache_hit"] == hit for c in t)
@@ -172,13 +170,13 @@ def _seed_jax(kind):
 def _seed_torch(kind):
     real = tfused._build_inputs
 
-    def build(key, device):
-        a, b, x = real(key, device)
+    def build(key, device, member):
+        a, b, x, ramp, ring = real(key, device, member)
         if kind in ("mm_quarter", "mm_nan"):
             a[0, 0] = 0.25 if kind == "mm_quarter" else float("nan")
         else:
             x[5] += 3.0 if kind == "hbm_offset" else float("nan")
-        return a, b, x
+        return a, b, x, ramp, ring
 
     return build
 
@@ -189,7 +187,7 @@ def _seed_torch(kind):
 def test_fused_fault_details_match(jax_dev, monkeypatch, kind):
     monkeypatch.setattr(jfused, "_build_inputs", _seed_jax(kind))
     monkeypatch.setattr(tfused, "_build_inputs", _seed_torch(kind))
-    j = jprobes.run_host_probe(jax_dev, fused=True, **JAX_SMALL)
+    j = jprobes.run_host_probe(jax_dev, fused=True, **SMALL)
     t = tprobes.run_host_probe([CPU], fused=True, **SMALL)
     assert [(c.name, c.ok, c.detail) for c in t] == [
         (c.name, c.ok, c.detail) for c in j
@@ -215,15 +213,27 @@ def test_fused_fault_detail_text(monkeypatch):
 
 
 @pytest.mark.parametrize("fused", [True, False])
-def test_multi_device_ici_fails_closed(fused):
+def test_multi_device_ici_fails_closed(monkeypatch, fused):
+    # A host whose collectives cannot run (here: no peer access between
+    # two of its GPUs) fails both ICI checks, naming the cause; the fused
+    # battery falls back to the unfused probes, which fail as well.
+    def no_peer_access(*args, **kw):
+        raise RuntimeError("peer access 0->1 unavailable")
+
+    monkeypatch.setattr(collectives, "all_reduce", no_peer_access)
+    monkeypatch.setattr(collectives, "ring_shift", no_peer_access)
     checks = tprobes.run_host_probe([CPU, CPU], fused=fused, **SMALL, **FAST)
     by_name = {c.name: c for c in checks}
     assert by_name["device_enumeration"].ok
     assert by_name["mxu_matmul"].ok and by_name["hbm_bandwidth"].ok
-    for name in ("ici_allreduce", "ici_ring"):
-        assert not by_name[name].ok
-        assert "not ported yet" in by_name[name].detail
-        assert by_name[name].metrics["devices"] == 2.0
+    assert by_name["mxu_matmul"].metrics["fused"] == 0.0
+    assert tfused.battery_stats()["fallbacks"] == int(fused)
+    assert (by_name["ici_allreduce"].ok, by_name["ici_allreduce"].detail) == (
+        False, "all-reduce failed: peer access 0->1 unavailable"
+    )
+    assert (by_name["ici_ring"].ok, by_name["ici_ring"].detail) == (
+        False, "ppermute failed: peer access 0->1 unavailable"
+    )
 
 
 def test_deep_and_dcn_collective_fail_closed():
