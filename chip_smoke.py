@@ -19,10 +19,19 @@ Phases:
    shapes, non-causal and wholly masked blocks; the ring on the card
    against the plain version's full attention; CUDA-event times beside the
    bound and one library call; then the fused battery at a small size on
-   the card against the CPU; K4 bit for bit at 2, 3, 5 and 8 sources of
-   2^20 and 2^22 elements, at a ragged length with unaligned offsets and
-   with a NaN in one source, and the all-reduce and ring shift over 2, 3
-   and 8 members of the card against the plain version, with K4's times;
+   the card against the CPU; K4 bit for bit at 2, 3, 4, 5 and 8 sources
+   of 2^20 and 2^22 elements, at a ragged length with unaligned offsets
+   and with a NaN in one source, and the all-reduce (also its
+   persistent form, into new outputs and in place) and ring shift over
+   2, 3, 4 and 8 members of the card against the plain version, with
+   K4's times; K5 byte for byte at 2, 3, 4, 5 and 8 pieces of 2^20 and
+   2^22 elements in all, ragged and unaligned, with the own range
+   skipped, and with rows a pitch apart, and the all-gather over 2, 3, 4
+   and 8 members against ``torch.cat``, with K5's times; and every
+   collective at the shapes the sharded and elastic canaries give it
+   (the tp all-reduce of [16, 512, 1024] over 4 and 2 members, the
+   gathers of [16, 512, 1024 / tp] along the last dimension, the dp
+   all-reduce of a member's flat gradients over 2 members);
 4. the unfused battery at production size (n=4096 bf16, 1 GiB stream);
 5. the fused battery twice (a warm-up-cache miss, then a hit);
 6. the node agent publishing a report, which the port's NodeReportProber
@@ -32,8 +41,12 @@ Phases:
    the unfused one over the 8 members, the LocalDeviceProber over them,
    and a ring in which member 0 keeps its own value, which must fail
    with the JAX package's detail; and the host time to enqueue one
-   all-reduce round, which bounds the bus bandwidth an 8-card board can
-   show;
+   all-reduce round (one graph launch), the probe's persistent round and
+   a functional one, with the members on the card's stream and on 8
+   distinct streams (an 8-card board's event traffic), the share of it
+   in the kernel library's call (with one, two and three sets of output
+   buffers in turn: two graphs a plan, repointed past two), and the bus
+   bandwidth that time allows a board;
 8. ring attention on the card: the deep probe over an 8-member ring on
    the one card (S 1024), the soak at S 4096, the elastic ring (a round,
    exclude, round, rejoin, round) and the battery with ``deep=True`` on
@@ -41,17 +54,25 @@ Phases:
 9. the canary at the bench's width (103 M parameters) for 3 warm-up and
    20 timed steps, its throughput and sustained device step time; and
    the small canary on the card against the CPU with the same weights
-   and batches.
+   and batches;
+10. the sharded canary at the bench's width over 8 members of the card
+   (dp 2 x tp 4): its first loss against the one-device runner's on the
+   same weights and batch, 3 warm-up and 10 timed steps, the launches
+   and host time of its collectives a step; then the elastic runner at
+   the same width over the 8 members in 2 slices: steps, an exclusion
+   (8 to 4 members), steps, a rejoin, steps, with each resize's seconds
+   and the longest gap between steps.
 
-Kernel launch counts are zeroed just before each path of phases 4-9
+Kernel launch counts are zeroed just before each path of phases 4-10
 (unfused, fused cold, fused warm, agent, local prober, the collective
-paths, the ring paths, the battery with the deep flag, the canary) and
-read just after it: each path names the kernels it must launch (K1 and
-K2 on the battery paths, K3 on the ring paths, K4 on the collective
-paths), and no path may have fallen back from the fused battery.  Any
-failure exits non-zero and prints no result; so does a machine without
-a CUDA device.  The last line of standard output is one
-JSON object,
+paths, the ring paths, the battery with the deep flag, the canary, the
+sharded and elastic canaries) and read just after it: each path names
+the kernels it must launch (K1 and K2 on the battery paths, K3 on the
+ring paths, K4 and K5 on the all-reduce and sharded paths, K4 on the
+ring shift's), and no path may have fallen back from the fused battery.
+Any failure exits non-zero and prints no result; so does a machine
+without a CUDA device.  The last line of standard output is one JSON
+object,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -100,6 +121,14 @@ TINY_CANARY = dict(vocab=64, d_model=64, n_heads=4, n_layers=2, d_ff=128,
 TINY_FIRST_LOSS_ATOL = 1e-4
 TINY_LOSS_ATOL = 1e-3
 CANARY_TIMED_STEPS = 20
+SHARDED_TIMED_STEPS = 10
+# The sharded canary's first loss against the one-device runner's, same
+# weights and batch (about 7.4): the card's TF32 products of
+# bf16-rounded operands are exact, and the two differ only in the order
+# of fp32 sums (the row-parallel products' partial sums added across the
+# tp members) and in the rare bf16 roundings such a difference flips.
+# 1e-4 absolute, the limit the small canary's first loss is held to.
+SHARDED_FIRST_LOSS_ATOL = 1e-4
 # NVLink one way per H100 SXM (NVIDIA data sheet): what an 8-card board's
 # all-reduce of a 4 MiB shard needs at least, 2 * 7/8 * 4 MiB over it.
 NVLINK_GBPS = 450.0
@@ -175,7 +204,8 @@ def main() -> int:
 
     # -- 3. kernels against their plain versions ---------------------------
     max_err = {"stream_increment_": 0.0, "verify_stats": 0.0,
-               "block_attention": 0.0, "peer_reduce": 0.0}
+               "block_attention": 0.0, "peer_reduce": 0.0,
+               "peer_gather": 0.0}
 
     def same(kname: str, got: torch.Tensor, want: torch.Tensor, what: str):
         torch.cuda.synchronize()
@@ -340,7 +370,7 @@ def main() -> int:
                 f"peer_reduce {what}: bits differ from plain (max {diff})")
 
     k4_cases = 0
-    for k in (2, 3, 5, 8):
+    for k in (2, 3, 4, 5, 8):
         # (length, source offset, dst offset): the main path's 2^20 and
         # 2^22 (8 x 16 MiB in, beyond the 50 MB L2), aligned; a ragged
         # length with sources and dst unaligned alike (scalar head), and
@@ -361,7 +391,7 @@ def main() -> int:
                         f"peer_reduce k={k} n={n}: the NaN did not come out")
                 k4_cases += 1
             del srcs, dst, want
-    for n in (2, 3, 8):
+    for n in (2, 3, 4, 8):
         for elems in (ALLREDUCE_ELEMS, 1001):
             shards = [torch.randn(elems, device=dev, generator=gen)
                       for _ in range(n)]
@@ -370,14 +400,146 @@ def main() -> int:
             for j, out in enumerate(K.all_reduce(shards, float(n))):
                 same_bits(out, want,
                           f"all_reduce of {n} x {elems}, member {j}")
+            # The persistent round (the probe's), into new outputs and in
+            # place, each run twice.
+            copies = [t.clone() for t in shards]
+            for target, label in ((None, "into new outputs"),
+                                  (copies, "in place")):
+                start = K.all_reduce_init(
+                    copies if target else shards, float(n), out=target
+                )
+                for _ in range(2):
+                    outs = start()
+                    for j, out in enumerate(outs):
+                        same_bits(out, want, f"all_reduce_init {label} of "
+                                             f"{n} x {elems}, member {j}")
+                    if target:  # the next round reduces the shards again
+                        for t, src in zip(copies, shards):
+                            t.copy_(src)
             for j, out in enumerate(K.ring_shift(shards)):
                 same_bits(out, shards[j - 1],
                           f"ring_shift of {n} x {elems}, member {j}")
             del shards, want
     print(f"[kernels] K4 matches its plain version bit for bit "
-          f"({k4_cases} cases: k 2, 3, 5, 8; 2^20, 2^22, ragged, unaligned, "
-          f"NaN), and so do all_reduce and ring_shift over 2, 3 and 8 "
-          f"members of the card", flush=True)
+          f"({k4_cases} cases: k 2, 3, 4, 5, 8; 2^20, 2^22, ragged, "
+          f"unaligned, NaN), and so do all_reduce (one graph a round: K4 "
+          f"and K5), its persistent round (into new outputs and in place) "
+          f"and ring_shift over 2, 3, 4 and 8 members of the card",
+          flush=True)
+
+    # K5 byte for byte: a copy, so every byte agrees with the plain
+    # version.  Each case gathers k pieces into one destination and skips
+    # one more range (the launching member's own), which must keep its
+    # bytes.
+    def same_bytes(got: torch.Tensor, want: torch.Tensor, what: str):
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs().nan_to_num(0.0).max().item()
+        max_err["peer_gather"] = max(max_err["peer_gather"], diff)
+        require(torch.equal(got.view(torch.uint8), want.view(torch.uint8)),
+                f"peer_gather {what}: bytes differ from plain (max {diff})")
+
+    k5_cases = 0
+    for k in (2, 3, 4, 5, 8):
+        # (elements a piece, piece offset into its buffer, gap between
+        # ranges): the main path's 2^20 and 2^22 in all, aligned; ragged
+        # pieces unaligned alike with dst, and apart.
+        for total, skew, gap in ((1 << 20, 0, 0), (1 << 22, 0, 0),
+                                 (1_000_003, 1, 1), (1_000_003, 3, 2)):
+            n = total // (k + 1)
+            pieces = [torch.randn(n + skew, device=dev, generator=gen)[skew:]
+                      for _ in range(k)]
+            # Range `skip` of the k + 1 is the launching member's own,
+            # left out of the pieces: its bytes must stay.
+            skip = k // 2
+            offsets = [(i + (i >= skip)) * (n + gap) + gap
+                       for i in range(k)]
+            dst = torch.randn((k + 1) * (n + gap) + gap, device=dev,
+                              generator=gen)
+            want = dst.clone()
+            K.peer_gather(dst, pieces, offsets)
+            K.peer_gather_plain(want, pieces, offsets)
+            same_bytes(dst, want, f"k={k} n={n} skew={skew} gap={gap}")
+            k5_cases += 1
+            del pieces, dst, want
+    # Rows a pitch apart: the canary's gathers along the last dimension
+    # (tp 4 and 2: 8192 rows of 256 or 512 fp32 a piece), then ragged
+    # rows, unaligned, that take the byte path.
+    for k, rows, width, skew, gap in ((4, 16 * 512, 256, 0, 0),
+                                      (2, 16 * 512, 512, 0, 0),
+                                      (3, 1001, 67, 1, 1),
+                                      (5, 77, 1024, 3, 2)):
+        pitch = k * width + gap
+        pieces = [torch.randn(rows * width + skew, device=dev,
+                              generator=gen)[skew:] for _ in range(k)]
+        offsets = [i * width + gap for i in range(k)]
+        dst = torch.randn(rows * pitch, device=dev, generator=gen)
+        want = dst.clone()
+        K.peer_gather(dst, pieces, offsets, rows, pitch)
+        K.peer_gather_plain(want, pieces, offsets, rows, pitch)
+        same_bytes(dst, want, f"k={k} rows={rows} width={width} "
+                              f"skew={skew} gap={gap}")
+        k5_cases += 1
+        del pieces, dst, want
+    for n in (2, 3, 4, 8):
+        for shape in ((ALLREDUCE_ELEMS,), (3, 5, 67)):
+            shards = [torch.randn(shape, device=dev, generator=gen)
+                      for _ in range(n)]
+            for dim in range(len(shape)):
+                want = torch.cat(shards, dim)
+                for j, out in enumerate(K.all_gather(shards, dim)):
+                    same_bytes(out, want, f"all_gather of {n} x {shape} "
+                                          f"along {dim}, member {j}")
+            del shards
+    print(f"[kernels] K5 matches its plain version byte for byte ({k5_cases} "
+          f"cases: k 2, 3, 4, 5, 8; 2^20, 2^22, ragged, unaligned, the own "
+          f"range skipped; rows a pitch apart), and all_gather matches "
+          f"torch.cat over 2, 3, 4 and 8 members of the card", flush=True)
+
+    # The collectives at the shapes the sharded canary (dp 2 x tp 4) and
+    # the elastic runner's smaller bundle (dp 2 x tp 2) give them, each
+    # against its plain version: the tp all-reduce of the row-parallel
+    # outputs and the column inputs' gradients, the gathers of the
+    # embedding and the logits along the last dimension, and the dp
+    # all-reduce of one member's flat gradients (divisor dp).
+    bench_cfg = C.CanaryConfig(**BENCH_CANARY)
+
+    def member_elems(tp: int) -> int:
+        def walk(shape, spec):
+            if isinstance(spec, dict):
+                return sum(walk(shape[k], spec[k]) for k in spec)
+            return math.prod(shape) // (tp if "tp" in spec else 1)
+        return walk(C.param_shapes(bench_cfg), C.param_specs(bench_cfg))
+
+    local_batch = BENCH_CANARY["batch"] // 2
+    seq, width = BENCH_CANARY["seq_len"], BENCH_CANARY["d_model"]
+    for tp in (4, 2):
+        shards = [torch.randn(local_batch, seq, width, device=dev,
+                              generator=gen) for _ in range(tp)]
+        want = torch.empty(shards[0].shape, device=dev)
+        K.peer_reduce_plain(want, shards, 0, 1.0)
+        for j, out in enumerate(K.all_reduce(shards)):
+            same_bits(out, want, f"canary tp all-reduce of {tp} x "
+                                 f"{tuple(want.shape)}, member {j}")
+        pieces = [s[..., :width // tp].contiguous() for s in shards]
+        want = torch.cat(pieces, -1)
+        for j, out in enumerate(K.all_gather(pieces, -1)):
+            same_bytes(out, want, f"canary gather of {tp} x "
+                                  f"{tuple(pieces[0].shape)} along -1, "
+                                  f"member {j}")
+        del shards, pieces, want
+        grads = [torch.randn(member_elems(tp), device=dev, generator=gen)
+                 for _ in range(2)]
+        want = torch.empty(grads[0].shape, device=dev)
+        K.peer_reduce_plain(want, grads, 0, 2.0)
+        for j, out in enumerate(K.all_reduce(grads, 2.0)):
+            same_bits(out, want, f"canary dp all-reduce of 2 x "
+                                 f"{grads[0].numel()} (tp {tp}), member {j}")
+        del grads, want
+    print(f"[kernels] all_reduce and all_gather match their plain versions "
+          f"exactly at the sharded canary's shapes (tp 4 and 2: [16, 512, "
+          f"1024] over tp, [16, 512, 1024 / tp] gathered along -1, the dp "
+          f"round of {member_elems(4)} and {member_elems(2)} elements over "
+          f"2)", flush=True)
 
     flush_buf = torch.empty(256 * 1024 * 1024 // 4, device=dev)
 
@@ -529,6 +691,45 @@ def main() -> int:
         del srcs, stacked, dst
     timing["peer_reduce"] = dict(shapes[0], shapes=shapes)
 
+    # K5 at the main path's shapes: the all-reduce's all-gather launch (7
+    # chunks of 2^17 from the other members) and the sharded canary's
+    # gathers (4 pieces of [16, 512, 256] fp32: the embedding's width and
+    # the logits' vocab at tp 4).  Bytes: each piece read once, written
+    # once.  The library call is torch.cat of the pieces, timed only.
+    shapes = []
+    for label, k, rows, n, iters in (
+        (f"all-reduce all-gather launch, k 7 x {chunk}", 7, 1, chunk, 200),
+        ("canary gather along -1, k 4 x [16, 512, 256]", 4, 16 * 512, 256,
+         50),
+    ):
+        pieces = [torch.randn(rows, n, device=dev, generator=gen)
+                  for _ in range(k)]
+        dst = torch.empty(rows, k * n, device=dev)
+        offsets = [i * n for i in range(k)]
+        args = (dst, pieces, offsets, rows, k * n)
+        b_ms, b_by = bound(2 * 4 * k * rows * n, 0)
+        shapes.append(dict(
+            at=label,
+            ms=time_ms(lambda: K.peer_gather(*args), iters),
+            device_ms=kernel_device_ms(
+                lambda: K.peer_gather(*args), iters, "peer_gather_kernel",
+            ),
+            plain_ms=time_ms(lambda: K.peer_gather_plain(*args), iters),
+            library_ms=time_ms(lambda: torch.cat(pieces, -1), iters),
+            bound_ms=b_ms, bound_by=b_by,
+        ))
+        if rows > 1:
+            whole_ms = time_ms(lambda: K.all_gather(pieces, -1), iters)
+            print(f"[timing] all_gather over {k} members of the card, "
+                  f"[16, 512, 256] along -1, the whole function (one round "
+                  f"of {k} K5 launches, each writing the gathered layout): "
+                  f"{whole_ms:.4f} ms by events, bound {k * b_ms:.4f} ms "
+                  f"(bytes), {k} x torch.cat "
+                  f"{k * shapes[-1]['library_ms']:.4f} ms on {card}",
+                  flush=True)
+        del pieces, dst, args
+    timing["peer_gather"] = dict(shapes[0], shapes=shapes)
+
     for kname, t in timing.items():
         for s in t.get("shapes", [t]):
             device = (f" (device {s['device_ms']:.4f} ms by the profiler)"
@@ -669,7 +870,10 @@ def main() -> int:
           f"{verdict.detail}; LocalDeviceProber: {local.detail}")
     # -- 7. the host's collectives over 8 members of the card ---------------
     members = [dev] * ICI_MEMBERS
-    collective_kernels = ("peer_reduce",)
+    # The all-reduce round launches K4 (reduce-scatter) and K5
+    # (all-gather); the ring shift K4 alone.
+    collective_kernels = ("peer_reduce", "peer_gather")
+    shift_kernels = ("peer_reduce",)
     t0 = time.perf_counter()
     ar = on_path("ICI all-reduce probe, 8 members",
                  lambda: ici_allreduce_probe(members), collective_kernels)
@@ -680,7 +884,7 @@ def main() -> int:
     require(ar.ok and ar.detail.startswith("psum over 8 devices exact; "),
             f"ici_allreduce: {ar.detail}")
     rp = on_path("ICI ring probe, 8 members",
-                 lambda: ici_ring_probe(members), collective_kernels)
+                 lambda: ici_ring_probe(members), shift_kernels)
     print(f"[collectives] ici_ring: ok={rp.ok} {rp.detail} latency "
           f"{rp.latency_ms:.3f} ms on {card}", flush=True)
     require(rp.ok and rp.detail == ("all 8 locally-received ring link(s) "
@@ -739,7 +943,7 @@ def main() -> int:
     collectives.ring_shift = member_0_keeps_its_value
     try:
         bad = on_path("ICI ring probe, member 0 keeps its value",
-                      lambda: ici_ring_probe(members), collective_kernels)
+                      lambda: ici_ring_probe(members), shift_kernels)
     finally:
         collectives.ring_shift = real_ring_shift
     print(f"[collectives] injected ring fault: ok={bad.ok} {bad.detail}",
@@ -749,41 +953,141 @@ def main() -> int:
             f"injected ring fault: {bad}")
 
     # One all-reduce round of the main path's shape on 8 members of the
-    # card: the host's time to enqueue it (the same Python, events and
-    # launches an 8-card board's round costs the host), and the round's
-    # time with the device's work, by CUDA events over back-to-back
-    # rounds.
+    # card.  The round is one graph launch (its K4 and K5 kernels, the
+    # phases ordered by graph edges) and the events that order it against
+    # the members' streams.  The host's time to enqueue it is taken with
+    # the 8 members on the card's current stream (what the probes on one
+    # card pay: no event), and with them on 8 distinct streams, member 0
+    # on the current one (the board-shaped figure: an 8-card board's
+    # round waits on 7 other streams before and makes 7 wait after); each
+    # for the probe's round (a persistent all-reduce into outputs made
+    # once) and for a functional round (``all_reduce``: fresh outputs
+    # each round).  Each figure is the mean over 20 back-to-back rounds
+    # started on an idle card, the best and the median of 15 such runs
+    # (the host's clock varies with its neighbours; the best is the cost
+    # itself); the round's time with the device's work is by CUDA events
+    # over 200 rounds.
     shards = [torch.full((ALLREDUCE_ELEMS,), float(i + 1), device=dev)
               for i in range(ICI_MEMBERS)]
-    for _ in range(5):
-        K.all_reduce(shards)
-    before = K.peer_reduce.launches
+    side = [torch.cuda.Stream(dev) for _ in range(ICI_MEMBERS - 1)]
+    board = ([torch.cuda.current_stream(dev).cuda_stream]
+             + [st.cuda_stream for st in side])
+
+    def enqueue_us(fn, rounds: int = 20, reps: int = 15) -> tuple:
+        for _ in range(rounds):
+            fn()
+        runs = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(rounds):
+                fn()
+            runs.append((time.perf_counter() - t0) / rounds * 1e6)
+        torch.cuda.synchronize()
+        runs.sort()
+        return runs[0], runs[len(runs) // 2]
+
+    before = K.launch_counts()
     K.all_reduce(shards)
-    per_round = K.peer_reduce.launches - before
-    torch.cuda.synchronize()
-    rounds = 50
-    t0 = time.perf_counter()
-    for _ in range(rounds):
-        K.all_reduce(shards)
-    enqueue_ms = (time.perf_counter() - t0) / rounds * 1e3
-    torch.cuda.synchronize()
-    round_ms = time_ms(lambda: K.all_reduce(shards), rounds)
-    ring_round_ms = time_ms(lambda: K.ring_shift(shards), rounds)
+    after = K.launch_counts()
+    per_round = {k: after[k] - before[k] for k in ("peer_reduce",
+                                                    "peer_gather")}
+    rounds = {
+        ("probe's round", "one stream"): K.all_reduce_init(shards),
+        ("probe's round", "8 streams"):
+            collectives._all_reduce_init(shards, 1.0, None, board),
+        ("functional round", "one stream"): lambda: K.all_reduce(shards),
+        ("functional round", "8 streams"):
+            lambda: collectives._all_reduce(shards, 1.0, board),
+    }
+    enqueue = {key: enqueue_us(fn) for key, fn in rounds.items()}
+    by_events = {key: time_ms(fn, 200) for key, fn in rounds.items()}
+    for key, fn in rounds.items():
+        for out in fn():
+            require(bool((out == 36.0).all()),
+                    f"the {key[0]} on {key[1]} of the card is wrong")
+    # The library call alone, the round's pointers packed beforehand (the
+    # events and the graph launch): with one set of output buffers, with
+    # two in turn (a plan keeps two graphs, so neither is repointed), and
+    # with three in turn (one graph repointed every round).  The rest of
+    # a round's host time is the Python around the call.
+    plan = collectives._plan(collectives.ALL_REDUCE,
+                             (dev.index,) * ICI_MEMBERS, ALLREDUCE_ELEMS,
+                             4 * ALLREDUCE_ELEMS)
+    fixed = [[torch.empty_like(t) for t in shards] for _ in range(3)]
+    packed = [
+        plan.pack(*[t.data_ptr() for t in shards],
+                  *[t.data_ptr() for t in outs], *streams)
+        for streams in ([board[0]] * ICI_MEMBERS, board)
+        for outs in fixed
+    ]
+    turn = [0]
+
+    def library_call(first: int, sets: int):
+        turn[0] = (turn[0] + 1) % sets
+        plan.launch_fn(plan.handle, packed[first + turn[0]], 1.0)
+
+    lib_us = {}
+    for label, first in (("one stream", 0), ("8 streams", 3)):
+        for sets in (1, 2, 3):
+            lib_us[label, sets] = enqueue_us(
+                lambda: library_call(first, sets)
+            )[0]
+    for outs in fixed:
+        for out in outs:
+            require(bool((out == 36.0).all()),
+                    "the library's round on the card is wrong")
+    del fixed, rounds
+    ring_round_ms = time_ms(lambda: K.ring_shift(shards), 50)
     moved = 2 * (ICI_MEMBERS - 1) / ICI_MEMBERS * 4 * ALLREDUCE_ELEMS
     link_ms = moved / (NVLINK_GBPS * 1e9) * 1e3
-    ceiling_gbps = moved / (max(enqueue_ms, link_ms) * 1e-3) / 1e9
     floor = resolve_floors(name)
+    floor_gbps = floor.ici_busbw_gbps if floor else None
+
+    def ceiling(us: float) -> str:
+        gbps = moved / (max(us * 1e-3, link_ms) * 1e-3) / 1e9
+        verdict = ("clears" if floor and gbps >= floor_gbps else "misses")
+        return f"{gbps:.2f} GB/s ({verdict} the floor)"
+
     print(f"[collectives] all-reduce round, {ICI_MEMBERS} members x "
-          f"{ALLREDUCE_ELEMS} fp32 on one card: host enqueue "
-          f"{enqueue_ms:.4f} ms, round {round_ms:.4f} ms by events, "
-          f"{per_round} K4 launches; ring shift round {ring_round_ms:.4f} "
-          f"ms; on {card}", flush=True)
+          f"{ALLREDUCE_ELEMS} fp32 on one card: one graph launch of "
+          f"{per_round['peer_reduce']} K4 and {per_round['peer_gather']} K5 "
+          f"kernels; the board-shaped round (8 distinct streams of the "
+          f"card) adds {ICI_MEMBERS} event records and "
+          f"{2 * (ICI_MEMBERS - 1)} cross-stream waits; ring shift round "
+          f"{ring_round_ms:.4f} ms; on {card}", flush=True)
+    for kind in ("probe's round", "functional round"):
+        print(f"[collectives] {kind}: host enqueue " + "; ".join(
+            f"{where} {enqueue[kind, where][0] / 1e3:.4f} ms (median "
+            f"{enqueue[kind, where][1] / 1e3:.4f} ms), round "
+            f"{by_events[kind, where]:.4f} ms by events"
+            for where in ("one stream", "8 streams"))
+            + f" (target for 8 streams: under 0.065 ms); on {card}",
+            flush=True)
+    python_us = {key: us[0] - lib_us[key[1], 1]
+                 for key, us in enqueue.items()}
+    print(f"[collectives] the library call (events and graph launch, "
+          f"pointers packed beforehand), one set of outputs / two in turn "
+          f"/ three in turn (a graph repointed every round): "
+          + "; ".join(
+              f"{where} " + " / ".join(
+                  f"{lib_us[where, k] / 1e3:.4f}" for k in (1, 2, 3))
+              + " ms" for where in ("one stream", "8 streams"))
+          + "; the Python around it: " + "; ".join(
+              f"{kind} on {where} {us / 1e3:.4f} ms"
+              for (kind, where), us in python_us.items())
+          + f"; on {card}", flush=True)
+    probe_board = enqueue["probe's round", "8 streams"][0]
+    functional_board = enqueue["functional round", "8 streams"][0]
     print(f"[collectives] 8-card board: 2*7/8*4 MiB needs {link_ms:.4f} ms "
-          f"over {NVLINK_GBPS:.0f} GB/s links; the host's enqueue of "
-          f"{enqueue_ms:.4f} ms caps the bus bandwidth at "
-          f"{ceiling_gbps:.2f} GB/s against the ICI floor of "
-          f"{floor.ici_busbw_gbps if floor else 'n/a'} GB/s", flush=True)
-    del shards
+          f"over {NVLINK_GBPS:.0f} GB/s links; the board-shaped enqueue "
+          f"caps the bus bandwidth at {ceiling(probe_board)} for the "
+          f"probe's round and at {ceiling(functional_board)} for a "
+          f"functional round, against the ICI floor of "
+          f"{floor_gbps if floor else 'n/a'} GB/s; ici_allreduce_probe over "
+          f"8 members of the card read "
+          f"{ar.metrics.get('busbw_gbps', 0.0):.2f} GB/s", flush=True)
+    del shards, side
 
     # -- 8. ring attention on the card ---------------------------------------
     ring = [dev] * 8
@@ -921,10 +1225,129 @@ def main() -> int:
         require(abs(l_cpu - l_card) <= atol,
                 f"small canary step {step}: card {l_card} vs CPU {l_cpu}")
 
+    # -- 10. the sharded canary and the elastic runner ---------------------
+    bench = C.CanaryConfig(**BENCH_CANARY)
+    grid = [dev] * ICI_MEMBERS
+    sharded_kernels = ("peer_reduce", "peer_gather")
+
+    def sharded_canary():
+        mesh = C.make_mesh(grid)
+        require(mesh.shape == {"dp": 2, "tp": 4}, f"mesh {mesh.shape}")
+        single = C.CanaryRunner(bench, device=dev)
+        single_first = single.run_step()
+        del single
+        t0 = time.perf_counter()
+        runner = C.CanaryRunner(bench, mesh=mesh)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        warm = [runner.run_step() for _ in range(3)]
+        runner.reset_timing()
+        before = K.launch_counts()
+        for _ in range(SHARDED_TIMED_STEPS):
+            runner.run_step()
+        after = K.launch_counts()
+        per_step = {k: (after[k] - before[k]) / SHARDED_TIMED_STEPS
+                    for k in sharded_kernels}
+        return runner, single_first, warm, per_step, init_s
+
+    runner, single_first, warm, per_step, init_s = on_path(
+        "sharded canary, bench width, dp 2 x tp 4 on one card",
+        sharded_canary, sharded_kernels,
+    )
+    losses = warm + runner.losses
+    print(f"[sharded] {runner.param_count()} parameters over {grid.count(dev)}"
+          f" members of the card (dp 2 x tp 4), init {init_s:.2f} s; losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    first_diff = abs(losses[0] - single_first)
+    print(f"[sharded] first step: sharded {losses[0]:.6f}, one device "
+          f"{single_first:.6f}, |diff| {first_diff:.2e} (limit "
+          f"{SHARDED_FIRST_LOSS_ATOL})", flush=True)
+    require(first_diff <= SHARDED_FIRST_LOSS_ATOL,
+            f"sharded first loss {losses[0]} vs one device {single_first}")
+    require(len(runner.losses) == SHARDED_TIMED_STEPS
+            and all(math.isfinite(x) for x in losses),
+            f"sharded canary losses: {losses}")
+    require(losses[-1] < losses[0],
+            f"sharded canary loss did not decrease: {losses}")
+    perf = runner.perf_summary()
+    print(f"[sharded] median step {perf['median_step_s'] * 1e3:.3f} ms, "
+          f"{perf['tokens_per_s']:.1f} tokens/s, "
+          f"{perf['achieved_tflops']:.2f} TFLOPS; per step K4 "
+          f"{per_step['peer_reduce']:.1f}, K5 {per_step['peer_gather']:.1f} "
+          f"launches; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB on {card}",
+          flush=True)
+    # The host's time inside the collectives: two more steps with the
+    # all-reduce and all-gather wrapped in a host clock (the list-level
+    # autograd functions look them up on the module; the step's dp
+    # all-reduce through the canary module's name).
+    spent = {"s": 0.0, "calls": 0}
+
+    def clocked(fn):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent["s"] += time.perf_counter() - t0
+                spent["calls"] += 1
+        return wrapper
+
+    saved = (collectives.all_reduce, collectives.all_gather, C.all_reduce)
+    collectives.all_reduce = clocked(saved[0])
+    collectives.all_gather = clocked(saved[1])
+    C.all_reduce = clocked(saved[2])
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            runner.run_step()
+        step_s = (time.perf_counter() - t0) / 2
+    finally:
+        collectives.all_reduce, collectives.all_gather, C.all_reduce = saved
+    print(f"[sharded] host time in the collectives: {spent['s'] / 2 * 1e3:.3f}"
+          f" ms a step over {spent['calls'] // 2} calls, of a "
+          f"{step_s * 1e3:.3f} ms step, on {card}", flush=True)
+    del runner
+
+    def elastic_canary():
+        t0 = time.perf_counter()
+        er = C.ElasticCanaryRunner(bench, grid, n_slices=2)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        sizes = []
+        for action in (None, "exclude", "rejoin"):
+            if action == "exclude":
+                er.exclude_slice(1)
+            elif action == "rejoin":
+                er.rejoin_slice(1)
+            sizes.append((er.active_device_count(), er.cfg.batch))
+            for _ in range(3):
+                er.run_step()
+        return er, setup_s, sizes
+
+    er, setup_s, sizes = on_path("elastic canary, bench width, 2 slices",
+                                 elastic_canary, sharded_kernels)
+    print(f"[elastic] set-up with the precompiled bundles {setup_s:.2f} s; "
+          f"(members, batch) before, during and after the exclusion "
+          f"{sizes}; losses {[round(x, 4) for x in er.losses]}", flush=True)
+    for e in er.resize_events:
+        print(f"[elastic] resize {e['direction']} (slice {e['slice']}): "
+              f"{e['seconds']:.3f} s on {card}", flush=True)
+    print(f"[elastic] max_gap_seconds {er.max_gap_seconds():.3f} over "
+          f"{len(er.losses)} steps on {card}", flush=True)
+    require(sizes == [(8, 32), (4, 32), (8, 32)], f"elastic sizes {sizes}")
+    require([e["direction"] for e in er.resize_events] == ["down", "up"],
+            f"elastic resizes {er.resize_events}")
+    require(all(math.isfinite(x) for x in er.losses),
+            f"elastic losses {er.losses}")
+    del er
+
     print("[launches] main path total: "
           + ", ".join(f"{k} {n}" for k, n in launches.items()), flush=True)
 
-    # -- 10. kernel line, card, result --------------------------------------
+    # -- 11. kernel line, card, result --------------------------------------
     source = {
         "stream_increment_":
             "k8s_operator_libs_tpu_torch/kernels/csrc/battery_kernels.cu",
@@ -934,6 +1357,8 @@ def main() -> int:
             "k8s_operator_libs_tpu_torch/kernels/csrc/attention_kernels.cu",
         "peer_reduce":
             "k8s_operator_libs_tpu_torch/kernels/csrc/collective_kernels.cu",
+        "peer_gather":
+            "k8s_operator_libs_tpu_torch/kernels/csrc/collective_kernels.cu",
     }
     replaces = {
         "stream_increment_": "k8s_operator_libs_tpu/health/probes.py:517",
@@ -941,6 +1366,7 @@ def main() -> int:
         "block_attention":
             "k8s_operator_libs_tpu/workloads/ring_attention.py:55",
         "peer_reduce": "k8s_operator_libs_tpu/health/probes.py:617",
+        "peer_gather": "k8s_operator_libs_tpu/workloads/canary.py:211",
     }
     kernels = [
         dict(

@@ -514,7 +514,11 @@ def ici_allreduce_probe(
     Member ``i`` contributes the constant ``i+1``, so every element of
     every member's result must equal ``n(n+1)/2`` exactly.  Bus bandwidth
     is measured over a sustained run (the same input re-reduced back to
-    back), with the JAX package's formula."""
+    back), with the JAX package's formula.  The rounds are one persistent
+    all-reduce (``collectives.all_reduce_init``) into outputs made once,
+    as nccl-tests time a collective: a round costs the host one library
+    call, so the run times the collective and not the allocation of each
+    round's outputs."""
     devs = list(devices) if devices is not None else cuda_devices()
     n = len(devs)
     if n < 2:
@@ -531,7 +535,7 @@ def ici_allreduce_probe(
             for i, d in enumerate(devs)
         ]
         latency_ms, out, iters = _timed_sustained(
-            lambda x: collectives.all_reduce(x), (shards,),
+            collectives.all_reduce_init(shards), (),
             min_time_s=min_time_s, max_iters=max_iters,
         )
         got = _members_numpy(out)

@@ -3,9 +3,10 @@
 - :mod:`.battery`: K1 ``stream_increment_`` and K2 ``verify_stats``
   (``csrc/battery_kernels.cu``);
 - :mod:`.attention`: K3 ``block_attention`` (``csrc/attention_kernels.cu``);
-- :mod:`.collectives`: K4 ``peer_reduce`` (``csrc/collective_kernels.cu``)
-  and the host's collectives built on it, ``all_reduce`` and
-  ``ring_shift``.
+- :mod:`.collectives`: K4 ``peer_reduce`` and K5 ``peer_gather``
+  (``csrc/collective_kernels.cu``) and the host's collectives built on
+  them, ``all_reduce`` (and its persistent form ``all_reduce_init``),
+  ``all_gather`` and ``ring_shift``.
 
 ``launch_counts()`` reads every wrapper's launch count and
 ``reset_launch_counts()`` zeroes them.
@@ -23,13 +24,18 @@ from k8s_operator_libs_tpu_torch.kernels.battery import (
 )
 from k8s_operator_libs_tpu_torch.kernels.build import load_library
 from k8s_operator_libs_tpu_torch.kernels.collectives import (
+    all_gather,
     all_reduce,
+    all_reduce_init,
+    peer_gather,
+    peer_gather_plain,
     peer_reduce,
     peer_reduce_plain,
     ring_shift,
 )
 
-KERNELS = (stream_increment_, verify_stats, block_attention, peer_reduce)
+KERNELS = (stream_increment_, verify_stats, block_attention, peer_reduce,
+           peer_gather)
 
 
 def launch_counts() -> dict[str, int]:
@@ -44,11 +50,15 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "KERNELS",
+    "all_gather",
     "all_reduce",
+    "all_reduce_init",
     "block_attention",
     "block_attention_plain",
     "launch_counts",
     "load_library",
+    "peer_gather",
+    "peer_gather_plain",
     "peer_reduce",
     "peer_reduce_plain",
     "reset_launch_counts",

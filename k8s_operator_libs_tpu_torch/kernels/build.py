@@ -132,6 +132,26 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i, vp,  # device, stream
     ]
     lib.collective_peer_reduce.restype = i
+    lib.collective_peer_gather.argtypes = [
+        ctypes.POINTER(vp), ctypes.POINTER(sz), ctypes.POINTER(sz), i, sz,
+        sz, vp, i, vp,  # srcs, offs, lens, k, rows, pitch, dst, device,
+        # stream
+    ]
+    lib.collective_peer_gather.restype = i
+    lib.collective_plan_create.argtypes = [
+        i, i, ctypes.POINTER(i), ctypes.POINTER(sz), ctypes.POINTER(sz),
+        sz, sz, ctypes.POINTER(vp),  # kind, n, devices, begin, end, rows,
+        # pitch, plan
+    ]
+    lib.collective_plan_create.restype = i
+    # plan, the round's pointers (in[n], out[n], streams[n] as uint64,
+    # packed), divisor
+    lib.collective_plan_launch.argtypes = [vp, vp, f]
+    lib.collective_plan_launch.restype = i
+    lib.collective_plan_nodes.argtypes = [
+        vp, ctypes.POINTER(i), ctypes.POINTER(i),
+    ]
+    lib.collective_plan_nodes.restype = None
     return lib
 
 

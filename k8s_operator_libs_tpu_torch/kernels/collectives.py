@@ -1,4 +1,4 @@
-"""The host's collectives in one process, built on the K4 kernel.
+"""The host's collectives in one process, built on the K4 and K5 kernels.
 
 One process drives every member of a collective, as the JAX package's
 probes drive the host's local mesh.  A member is a tensor on one device;
@@ -10,35 +10,77 @@ card, each on that card's current stream).
   / divisor`` on ``dst``'s device, fp32 sums in index order and an IEEE
   division; each source may lie on any device of the host (peer access
   over NVLink).  At most ``MAX_SOURCES`` sources.
+- ``peer_gather(dst, pieces, offsets, rows, pitch)`` (K5, same source):
+  ``dst[off_i : off_i + len_i] = pieces[i]`` for up to ``MAX_SOURCES``
+  pieces, or, with ``rows`` > 1, each piece's rows landing ``pitch``
+  elements apart; a byte copy (any dtype), each piece on any device of
+  the host.
 - ``all_reduce(shards, divisor)``: every member gets the index-order sum
   of all the shards over ``divisor`` (JAX's ``psum``, then a division),
   as a reduce-scatter (member j reduces chunk j from every member, one K4
   launch) and an all-gather (member j copies every other chunk from its
-  owner, K4 at k = 1); at most ``MAX_SOURCES`` members, the GPUs of an
+  owner, one K5 launch); at most ``MAX_SOURCES`` members, the GPUs of an
   HGX board.  Each member moves 2(n-1)/n of a shard over its links, what
   the bus-bandwidth formula of ``ici_allreduce_probe`` assumes.
+- ``all_reduce_init(shards, divisor, out)``: a persistent all-reduce
+  (MPI's ``MPI_Allreduce_init``): checks, plan and pointers once, then
+  one library call a round into the same outputs; what the bus-bandwidth
+  probe times, as nccl-tests time rounds into buffers made beforehand.
+- ``all_gather(shards, dim)``: every member gets the concatenation of all
+  the shards along ``dim`` (JAX's ``all_gather(..., tiled=True)``), one
+  K5 launch a member writing the gathered layout directly.
 - ``ring_shift(shards)``: member j gets member j-1's shard (JAX's
   ``ppermute`` by +1), one K4 launch at k = 1 on each member.
 
-Ordering, with no host synchronisation: each member's work runs on its
-device's current stream, and a barrier (every stream waits for the first
-member's, which first waits for every other) stands before the first
-read of the inputs, between the two phases and after the last read.
-After a call returns, later work on any member's current stream is
-ordered after every read of every input and output, so the caller may
-overwrite or free them at once: the caching allocator reuses a block
-only for later work on the stream that allocated it, which for tensors
-made on a device's current stream is that member's stream.
+One host call a round.  On CUDA tensors ``all_reduce`` and
+``all_gather`` hand the round to a plan in the kernel library (one per
+shape: the members' devices, the length and the kind), which keeps the
+round's launches as a CUDA graph and enqueues it with one
+``cudaGraphLaunch`` and the events that order it against the members'
+streams: an all-reduce of n members is 2n kernels and two phases, and
+launching them one by one cost the host more than the device's work.  A
+plan keeps two graphs, so rounds that alternate between two sets of
+buffers replay without repointing, and repoints the one not used last
+when a round's pointers are new; the outputs are always freshly
+allocated tensors, so a round never writes a buffer that an earlier
+round handed out.  A plan's failure raises; nothing falls back to launching from
+Python.  The host's Python around the call is kept short (it is most of
+a round's host time): one pass over the members checks them and reads
+their devices, and the outputs of the members that share a device are
+the rows of one allocation, their pointers computed from its base.
 
-Tensors on the CPU take K4's plain version, and the same algorithm runs
-in program order; on CUDA tensors the wrapper launches the kernel or
-raises.  ``peer_reduce.launches`` counts kernel launches.
+Ordering, with no host synchronisation: each member's work runs on its
+device's current stream.  Before a round reads its inputs, the first
+member's stream waits for every other member's; the round runs on the
+first member's stream (its kernels on their members' devices, the
+phases ordered by graph edges); after it, every other member's stream
+waits for the first's.  The ring shift orders each link with one wait
+before and one after.  After a call returns, later work on any member's
+current stream is ordered after every read of every input and output, so
+the caller may overwrite or free them at once: the caching allocator
+reuses a block only for later work on the stream that allocated it,
+which for tensors made on a device's current stream is that member's
+stream.  The outputs of the members that share a device are the rows
+of one allocation (one per device and round).
+
+Tensors on the CPU take the kernels' plain versions, and the same
+algorithms run in program order; on CUDA tensors the wrappers launch the
+kernels or raise.  ``peer_reduce.launches`` and ``peer_gather.launches``
+count kernel launches, a round's graph counting each of its kernels.
+
+The list-level autograd functions ``copy_to_members``,
+``reduce_from_members`` and ``gather_from_members`` wrap the collectives
+for tensor parallelism (Megatron's conjugate pairs), as the sharded
+canary step uses them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+import struct
 import threading
+from operator import attrgetter
 from typing import Sequence
 
 import torch
@@ -54,11 +96,11 @@ _PEERS_LOCK = threading.Lock()
 _PEERS: set[tuple[int, int]] = set()
 
 
-def _check_tensor(t, what: str) -> None:
+def _check_tensor(t, what: str, dtype=torch.float32) -> None:
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{what}: want a tensor, got {type(t).__name__}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{what}: want float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: want {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: must be contiguous")
     if t.numel() == 0:
@@ -151,56 +193,278 @@ def peer_reduce(dst, srcs, off: int = 0, divisor: float = 1.0):
 peer_reduce.launches = 0
 
 
-class _Members:
-    """The members of one collective call: their current streams, the
-    ordering between them, and K4 launches on them."""
+def _check_gather(dst, pieces, offsets, rows: int, pitch: int) -> None:
+    if not isinstance(dst, torch.Tensor):
+        raise TypeError(f"peer_gather: want a tensor, got {type(dst).__name__}")
+    _check_tensor(dst, "peer_gather: dst", dst.dtype)
+    if not 1 <= len(pieces) <= MAX_SOURCES:
+        raise ValueError(
+            f"peer_gather: want 1 to {MAX_SOURCES} pieces, got {len(pieces)}"
+        )
+    if len(offsets) != len(pieces):
+        raise ValueError(
+            f"peer_gather: {len(pieces)} pieces, {len(offsets)} offsets"
+        )
+    if rows < 1:
+        raise ValueError(f"peer_gather: want at least one row, got {rows}")
+    spans = []
+    for i, (p, off) in enumerate(zip(pieces, offsets)):
+        _check_tensor(p, f"peer_gather: piece {i}", dst.dtype)
+        if p.device.type != dst.device.type:
+            raise ValueError(
+                f"peer_gather: piece {i} is on {p.device}, dst on {dst.device}"
+            )
+        if p.numel() % rows:
+            raise ValueError(
+                f"peer_gather: piece {i} of {p.numel()} elements is not "
+                f"{rows} rows"
+            )
+        width = p.numel() // rows
+        if rows > 1 and off + width > pitch:
+            raise ValueError(
+                f"peer_gather: piece {i}'s rows at {off} + {width} overrun "
+                f"the pitch {pitch}"
+            )
+        if off < 0 or (rows - 1) * pitch + off + width > dst.numel():
+            raise ValueError(
+                f"peer_gather: piece {i} at {off} + {width} in {rows} rows "
+                f"overruns dst of {dst.numel()} elements"
+            )
+        spans.append((off, off + width))
+    spans.sort()
+    for (_, end), (start, _) in zip(spans, spans[1:]):
+        if start < end:
+            raise ValueError("peer_gather: the pieces' ranges overlap")
 
-    def __init__(self, shards: list, what: str) -> None:
-        if not shards:
-            raise ValueError(f"{what}: no members")
-        for i, s in enumerate(shards):
-            _check_tensor(s, f"{what}: member {i}")
-            if s.numel() != shards[0].numel():
-                raise ValueError(
-                    f"{what}: member {i} has {s.numel()} elements, member 0 "
-                    f"{shards[0].numel()}"
-                )
-            if s.device.type != shards[0].device.type:
-                raise ValueError(
-                    f"{what}: member {i} is on {s.device}, member 0 on "
-                    f"{shards[0].device}"
-                )
-        self.shards = shards
-        self.cuda = shards[0].device.type == "cuda"
-        if self.cuda:
-            self.streams = [torch.cuda.current_stream(s.device) for s in shards]
-            devices = sorted({s.device.index for s in shards})
-            for d in devices:
-                for p in devices:
-                    enable_peer_access(d, p)
 
-    def wait(self, j: int, i: int) -> None:
-        """Member j's later work waits for member i's earlier work."""
-        if self.cuda:
-            self.streams[j].wait_stream(self.streams[i])
-
-    def barrier(self) -> None:
-        """Every member's later work waits for every member's earlier
-        work (through member 0's stream)."""
-        if self.cuda:
-            for i in range(1, len(self.shards)):
-                self.wait(0, i)
-            for j in range(1, len(self.shards)):
-                self.wait(j, 0)
-
-    def reduce(self, j: int, dst, srcs: list, off: int,
-               divisor: float) -> None:
-        """Member j: ``dst = (srcs[0][off:] + ...) / divisor``."""
-        if self.cuda:
-            _launch(dst, [s.data_ptr() for s in srcs], off, divisor,
-                    self.streams[j])
+def peer_gather_plain(dst, pieces, offsets, rows: int = 1, pitch: int = 0):
+    """Plain version of K5: each piece copied into its range of ``dst``
+    (row by row ``pitch`` elements apart when ``rows`` > 1)."""
+    flat = dst.view(-1)
+    for p, off in zip(pieces, offsets):
+        if rows == 1:
+            flat[off:off + p.numel()].copy_(p.reshape(-1))
         else:
-            peer_reduce_plain(dst, srcs, off, divisor)
+            width = p.numel() // rows
+            flat[off:].as_strided((rows, width), (pitch, 1)).copy_(
+                p.reshape(rows, width)
+            )
+    return dst
+
+
+def peer_gather(dst, pieces, offsets, rows: int = 1, pitch: int = 0):
+    """K5: ``dst.view(-1)[off_i : off_i + pieces[i].numel()] = pieces[i]``
+    for 1 to ``MAX_SOURCES`` contiguous pieces of ``dst``'s dtype, their
+    ranges disjoint; returns ``dst``.  With ``rows`` > 1 each piece is
+    ``rows`` rows of ``numel / rows`` elements, row r landing at ``off_i
+    + r * pitch`` (the ranges within a row disjoint, each inside the
+    pitch).  On CUDA it launches one byte copy on the current stream of
+    ``dst``'s device; the caller orders the pieces' producers (on other
+    devices' streams) before it."""
+    pieces, offsets = list(pieces), [int(o) for o in offsets]
+    rows, pitch = int(rows), int(pitch)
+    _check_gather(dst, pieces, offsets, rows, pitch)
+    if dst.device.type == "cpu":
+        return peer_gather_plain(dst, pieces, offsets, rows, pitch)
+    for p in pieces:
+        enable_peer_access(dst.device.index, p.device.index)
+    esz = dst.element_size()
+    k = len(pieces)
+    lib = load_library()
+    code = lib.collective_peer_gather(
+        (ctypes.c_void_p * k)(*(p.data_ptr() for p in pieces)),
+        (ctypes.c_size_t * k)(*(o * esz for o in offsets)),
+        (ctypes.c_size_t * k)(*(p.numel() // rows * esz for p in pieces)),
+        k, rows, pitch * esz, dst.data_ptr(), dst.device.index,
+        torch.cuda.current_stream(dst.device).cuda_stream,
+    )
+    check(lib, code, "peer_gather")
+    peer_gather.launches += 1
+    return dst
+
+
+peer_gather.launches = 0
+
+
+_DTYPE = attrgetter("dtype")
+_IS_CPU = attrgetter("is_cpu")
+
+
+def _member_devices(shards: list, what: str, dtype=torch.float32):
+    """Check a collective's members (contiguous, non-empty, of one shape,
+    dtype and device type, CPU or CUDA); their CUDA device indices, or
+    ``None`` when they lie on the CPU.  A few passes of C-level attribute
+    reads (a round's host time is its cost); on a fault, a second look
+    names it through ``_check_tensor``."""
+    if not shards:
+        raise ValueError(f"{what}: no members")
+    n = len(shards)
+    first = shards[0]
+    try:
+        devices = tuple(map(torch.Tensor.get_device, shards))
+        if (list(map(torch.Tensor.size, shards)).count(first.shape) == n
+                and list(map(_DTYPE, shards)).count(dtype) == n
+                and all(map(torch.Tensor.is_contiguous, shards))
+                and first.numel()):
+            if min(devices) >= 0:
+                return devices
+            if all(map(_IS_CPU, shards)):
+                return None
+    except TypeError:  # a member that is not a tensor
+        pass
+    for i, s in enumerate(shards):
+        _check_tensor(s, f"{what}: member {i}", dtype)
+        if s.device.type != first.device.type:
+            raise ValueError(
+                f"{what}: member {i} is on {s.device}, member 0 on "
+                f"{first.device}"
+            )
+        if s.shape != first.shape:
+            raise ValueError(
+                f"{what}: member {i} has shape {tuple(s.shape)}, "
+                f"member 0 {tuple(first.shape)}"
+            )
+    raise AssertionError(f"{what}: members failed a check none names")
+
+
+ALL_REDUCE, ALL_GATHER = 0, 1
+
+_PLANS_LOCK = threading.Lock()
+# Round plans of the kernel library by (kind, member devices, two sizes:
+# elements and bytes a member for an all-reduce, rows and bytes a row
+# for an all-gather).
+_PLANS: dict[tuple, "_RoundPlan"] = {}
+
+
+def _outputs(shards: list, devices: tuple, shape, nbytes: int):
+    """A new tensor of ``shape`` (``nbytes`` bytes) and the shards' dtype
+    for every member, and their pointers: one allocation for the members
+    that share a device, whose outputs are its rows."""
+    n = len(shards)
+    if devices.count(devices[0]) == n:
+        buf = shards[0].new_empty((n, *shape))
+        base = buf.data_ptr()
+        return buf.unbind(0), [base + j * nbytes for j in range(n)]
+    groups: dict[int, list[int]] = {}
+    for j, d in enumerate(devices):
+        groups.setdefault(d, []).append(j)
+    outs = [None] * n
+    for members in groups.values():
+        first = shards[members[0]]
+        if len(members) == 1:
+            outs[members[0]] = first.new_empty(shape)
+            continue
+        buf = first.new_empty((len(members), *shape))
+        for j, t in zip(members, buf.unbind(0)):
+            outs[j] = t
+    return outs, [o.data_ptr() for o in outs]
+
+
+class _RoundPlan:
+    """A round of one shape in the kernel library: its graph, the K4 and
+    K5 kernels one replay launches, and what the host needs per round."""
+
+    def __init__(self, kind: int, devices: tuple, bounds: list,
+                 rows: int, pitch: int) -> None:
+        lib = load_library()
+        n = len(devices)
+        handle = ctypes.c_void_p()
+        code = lib.collective_plan_create(
+            kind, n, (ctypes.c_int * n)(*devices),
+            (ctypes.c_size_t * n)(*(a for a, _ in bounds)),
+            (ctypes.c_size_t * n)(*(b for _, b in bounds)),
+            rows, pitch, ctypes.byref(handle),
+        )
+        check(lib, code, "creating a collective round plan")
+        rs, ag = (ctypes.c_int * n)(), (ctypes.c_int * n)()
+        lib.collective_plan_nodes(handle, rs, ag)
+        self.handle = handle
+        self.devices = devices
+        self.one_device = devices.count(devices[0]) == n
+        self.k4 = sum(rs)
+        self.k5 = sum(ag)
+        # The round's pointers, packed as the C side reads them: in[n],
+        # out[n], streams[n] as uint64.
+        self.pack = struct.Struct(f"={3 * n}Q").pack
+        self.launch_fn = lib.collective_plan_launch
+        self.lib = lib
+
+    def streams(self) -> list[int]:
+        """Each member's current stream (a raw ``cudaStream_t``), looked
+        up once per device."""
+        get = torch._C._cuda_getCurrentRawStream
+        if self.one_device:
+            return [get(self.devices[0])] * len(self.devices)
+        seen: dict[int, int] = {}
+        return [seen[d] if d in seen else seen.setdefault(d, get(d))
+                for d in self.devices]
+
+    def run(self, shards: list, shape, nbytes: int, divisor: float,
+            streams) -> list:
+        """One round: fresh outputs of ``shape`` (``nbytes`` each), the
+        graph launched with the members' streams (``None``: their current
+        streams)."""
+        outs, out_ptrs = _outputs(shards, self.devices, shape, nbytes)
+        self.launch(
+            self.pack(*map(torch.Tensor.data_ptr, shards), *out_ptrs,
+                      *(self.streams() if streams is None else streams)),
+            divisor,
+        )
+        return list(outs)
+
+    def launch(self, packed: bytes, divisor: float) -> None:
+        """One round of the packed pointers; counts its kernels."""
+        code = self.launch_fn(self.handle, packed, divisor)
+        if code:
+            check(self.lib, code, "collective round")
+        peer_reduce.launches += self.k4
+        peer_gather.launches += self.k5
+
+    def persistent(self, shards: list, outs: list, divisor: float,
+                   streams):
+        """A function that runs one round from ``shards`` into ``outs``
+        each call and returns ``outs``, the pointers packed here once
+        (``streams``: fixed raw streams, or ``None`` for the members'
+        current streams at each call, repacked when they change)."""
+        ptrs = [*map(torch.Tensor.data_ptr, shards),
+                *map(torch.Tensor.data_ptr, outs)]
+        fixed = streams is not None
+        now = list(streams) if fixed else self.streams()
+        state = [now, self.pack(*ptrs, *now)]
+
+        def start(_keep=(shards, outs)) -> list:
+            if not fixed:
+                now = self.streams()
+                if now != state[0]:
+                    state[0], state[1] = now, self.pack(*ptrs, *now)
+            self.launch(state[1], divisor)
+            return outs
+
+        return start
+
+
+def _plan(kind: int, devices: tuple, a: int, b: int) -> _RoundPlan:
+    """The plan of a round of ``kind`` over members on ``devices``, made
+    on first use: an all-reduce of ``a`` fp32 elements (``b`` bytes) a
+    member, or an all-gather of members of ``a`` rows of ``b`` bytes."""
+    key = (kind, devices, a, b)
+    plan = _PLANS.get(key)
+    if plan is None:
+        with _PLANS_LOCK:
+            plan = _PLANS.get(key)
+            if plan is None:
+                n = len(devices)
+                if kind == ALL_REDUCE:
+                    bounds, rows, pitch = _chunks(a, n), 1, 0
+                else:
+                    bounds = [(i * b, (i + 1) * b) for i in range(n)]
+                    rows, pitch = a, n * b
+                for d in set(devices):
+                    for p in set(devices):
+                        enable_peer_access(d, p)
+                plan = _PLANS[key] = _RoundPlan(kind, devices, bounds, rows,
+                                                pitch)
+    return plan
 
 
 def _chunks(elems: int, n: int) -> list[tuple[int, int]]:
@@ -217,28 +481,125 @@ def all_reduce(shards: Sequence[torch.Tensor],
                divisor: float = 1.0) -> list[torch.Tensor]:
     """Every member's new tensor holds ``(shards[0] + ... +
     shards[n-1]) / divisor``, summed in index order and divided by IEEE
-    division, on that member's device; 1 to ``MAX_SOURCES`` members."""
-    shards = list(shards)
+    division, on that member's device; 1 to ``MAX_SOURCES`` contiguous
+    fp32 members of one shape."""
+    return _all_reduce(list(shards), divisor)
+
+
+def _all_reduce(shards: list, divisor: float, streams=None) -> list:
+    """``all_reduce`` with the members' streams given (``None``: their
+    current streams)."""
     n = len(shards)
     if n > MAX_SOURCES:
         raise ValueError(
             f"all_reduce: at most {MAX_SOURCES} members, got {n}"
         )
-    m = _Members(shards, "all_reduce")
-    outs = [torch.empty_like(s) for s in shards]
+    devices = _member_devices(shards, "all_reduce")
+    if devices is not None:
+        first = shards[0]
+        numel = first.numel()
+        return _plan(ALL_REDUCE, devices, numel, 4 * numel).run(
+            shards, first.shape, 4 * numel, float(divisor), streams
+        )
+    return _reduce_plain(shards, divisor, [torch.empty_like(s)
+                                           for s in shards])
+
+
+def _reduce_plain(shards: list, divisor: float, outs: list) -> list:
+    """The round's schedule with the kernels' plain versions, into
+    ``outs`` (which may be the shards themselves: a member's chunk is
+    written only after every read of it)."""
+    bounds = _chunks(shards[0].numel(), len(shards))
     flat = [o.view(-1) for o in outs]
-    bounds = _chunks(shards[0].numel(), n)
-    m.barrier()  # the inputs' producers before any member reads them
-    for j, (a, b) in enumerate(bounds):
-        if a == b:
-            continue
-        m.reduce(j, flat[j][a:b], shards, a, divisor)
-    m.barrier()  # every chunk reduced before any member copies it
-    for j in range(n):
-        for i, (a, b) in enumerate(bounds):
-            if i != j and a < b:
-                m.reduce(j, flat[j][a:b], [flat[i]], a, 1.0)
-    m.barrier()  # every read done before any member's later work
+    for j, (a, b) in enumerate(bounds):  # reduce-scatter
+        if a < b:
+            peer_reduce_plain(flat[j][a:b], shards, a, divisor)
+    for j in range(len(shards)):  # all-gather
+        own = [i for i, (a, b) in enumerate(bounds) if i != j and a < b]
+        if own:
+            peer_gather_plain(flat[j], [flat[i][bounds[i][0]:bounds[i][1]]
+                                        for i in own],
+                              [bounds[i][0] for i in own])
+    return outs
+
+
+def all_reduce_init(shards: Sequence[torch.Tensor], divisor: float = 1.0,
+                    out: Sequence[torch.Tensor] | None = None):
+    """A persistent all-reduce (MPI's ``MPI_Allreduce_init``): the
+    returned function runs one round each call, writing ``(shards[0] +
+    ... + shards[n-1]) / divisor`` of the shards' current values into
+    ``out`` as ``all_reduce`` computes it, and returns ``out``.  ``out``
+    (by default new tensors made here) holds one contiguous fp32 tensor
+    of the shards' shape a member, on its member's device; each may be
+    its member's shard (in place) and must otherwise overlap no shard.
+    The checks, the plan and the round's pointers are done here, once,
+    so a call costs the host one library call; the shards and outputs
+    must keep their storage while the function is in use.  A round reads
+    and writes on the members' current streams at the call, ordered as
+    ``all_reduce``'s."""
+    return _all_reduce_init(list(shards), divisor,
+                            None if out is None else list(out))
+
+
+def _all_reduce_init(shards: list, divisor: float, out, streams=None):
+    """``all_reduce_init`` with the members' streams fixed (``None``:
+    their current streams at each call)."""
+    n = len(shards)
+    if n > MAX_SOURCES:
+        raise ValueError(
+            f"all_reduce: at most {MAX_SOURCES} members, got {n}"
+        )
+    devices = _member_devices(shards, "all_reduce")
+    outs = [torch.empty_like(s) for s in shards] if out is None else out
+    if len(outs) != n:
+        raise ValueError(f"all_reduce: {n} members, {len(outs)} outputs")
+    if (_member_devices(outs, "all_reduce: output") != devices
+            or outs[0].shape != shards[0].shape):
+        raise ValueError(
+            "all_reduce: each output must have its member's shape and device"
+        )
+    if devices is None:
+        return lambda: _reduce_plain(shards, divisor, outs)
+    numel = shards[0].numel()
+    return _plan(ALL_REDUCE, devices, numel, 4 * numel).persistent(
+        shards, outs, float(divisor), streams
+    )
+
+
+def all_gather(shards: Sequence[torch.Tensor],
+               dim: int = 0) -> list[torch.Tensor]:
+    """Every member's new tensor is the concatenation of all the shards
+    along ``dim``, in member order, on that member's device; 1 to
+    ``MAX_SOURCES`` contiguous members of one shape and dtype.  Each
+    shard is ``rows`` rows (the product of the dimensions before
+    ``dim``) of ``width`` elements (the rest); member i's rows land at
+    ``i * width`` of the gathered rows, ``n * width`` apart, so the one
+    K5 launch a member writes the gathered layout directly."""
+    shards = list(shards)
+    n = len(shards)
+    if n > MAX_SOURCES:
+        raise ValueError(
+            f"all_gather: at most {MAX_SOURCES} members, got {n}"
+        )
+    if not shards:
+        raise ValueError("all_gather: no members")
+    devices = _member_devices(shards, "all_gather",
+                              getattr(shards[0], "dtype", None))
+    first = shards[0]
+    piece = first.shape
+    d = dim % len(piece)
+    rows = math.prod(piece[:d])
+    width = first.numel() // rows
+    shape = (*piece[:d], n * piece[d], *piece[d + 1:])
+    if devices is not None:
+        esz = first.element_size()
+        return _plan(ALL_GATHER, devices, rows, width * esz).run(
+            shards, shape, n * width * rows * esz, 1.0, None
+        )
+    outs = [s.new_empty(shape) for s in shards]
+    for out in outs:
+        peer_gather_plain(out, shards, [i * width for i in range(n)], rows,
+                          n * width)
     return outs
 
 
@@ -246,13 +607,97 @@ def ring_shift(shards: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     """Member j's new tensor is a copy of member j-1's shard (mod n), on
     member j's device."""
     shards = list(shards)
-    m = _Members(shards, "ring_shift")
+    cuda = _member_devices(shards, "ring_shift") is not None
     n = len(shards)
     outs = [torch.empty_like(s) for s in shards]
+    if not cuda:
+        for j in range(n):
+            peer_reduce_plain(outs[j].view(-1), [shards[j - 1]], 0, 1.0)
+        return outs
+    devices = sorted({s.device.index for s in shards})
+    for d in devices:
+        for p in devices:
+            enable_peer_access(d, p)
+    streams = [torch.cuda.current_stream(s.device) for s in shards]
+    for j in range(n):  # shard j-1's producer before j reads it
+        streams[j].wait_stream(streams[j - 1])
     for j in range(n):
-        m.wait(j, (j - 1) % n)  # shard j-1's producer before j reads it
-    for j in range(n):
-        m.reduce(j, outs[j].view(-1), [shards[j - 1]], 0, 1.0)
-    for j in range(n):
-        m.wait((j - 1) % n, j)  # j's read before shard j-1's later work
+        _launch(outs[j].view(-1), [shards[j - 1].data_ptr()], 0, 1.0,
+                streams[j])
+    for j in range(n):  # j's read before shard j-1's later work
+        streams[j - 1].wait_stream(streams[j])
     return outs
+
+
+# -- autograd over a list of members (tensor parallelism) -------------------
+#
+# Megatron's conjugate pairs, for members whose later computation is
+# replicated (every member of the group computes the same function of the
+# same values, so each carries the whole gradient of its own copy of the
+# loss): the group's loss is the sum of the members' identical losses and
+# each member's gradients are those of one loss.
+
+
+class _CopyToMembers(torch.autograd.Function):
+    """Forward: identity.  Backward: all-reduce (each member's partial
+    gradient of a replicated input, summed)."""
+
+    @staticmethod
+    def forward(ctx, *xs):
+        return xs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return tuple(all_reduce([g.contiguous() for g in grads]))
+
+
+class _ReduceFromMembers(torch.autograd.Function):
+    """Forward: all-reduce (the members' partial sums).  Backward:
+    identity."""
+
+    @staticmethod
+    def forward(ctx, *xs):
+        return tuple(all_reduce(list(xs)))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return grads
+
+
+class _GatherFromMembers(torch.autograd.Function):
+    """Forward: all-gather along ``dim``.  Backward: each member's slice
+    of its own gradient."""
+
+    @staticmethod
+    def forward(ctx, dim, *xs):
+        ctx.dim = dim % xs[0].dim()
+        ctx.size = xs[0].shape[ctx.dim]
+        return tuple(all_gather(list(xs), ctx.dim))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        m = ctx.size
+        return (None, *(g.narrow(ctx.dim, j * m, m)
+                        for j, g in enumerate(grads)))
+
+
+def copy_to_members(xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """The input of a column-parallel product: identity forward, gradient
+    all-reduced over the members backward."""
+    xs = list(xs)
+    return xs if len(xs) == 1 else list(_CopyToMembers.apply(*xs))
+
+
+def reduce_from_members(xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """The output of a row-parallel product: all-reduced forward, the
+    gradient passed through backward."""
+    xs = list(xs)
+    return xs if len(xs) == 1 else list(_ReduceFromMembers.apply(*xs))
+
+
+def gather_from_members(xs: Sequence[torch.Tensor],
+                        dim: int = -1) -> list[torch.Tensor]:
+    """Pieces split along ``dim`` (a vocab- or width-split product):
+    all-gathered forward, each member's slice of its gradient backward."""
+    xs = list(xs)
+    return xs if len(xs) == 1 else list(_GatherFromMembers.apply(dim, *xs))

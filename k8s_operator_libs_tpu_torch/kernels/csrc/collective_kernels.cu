@@ -1,10 +1,11 @@
-// Hand-written Hopper kernel of the host's collectives.
+// Hand-written Hopper kernels of the host's collectives, and the round
+// plans that enqueue a whole collective with one host call.
 //
 // Built with nvcc for sm_90a into the port's shared library (plain C
 // interface, bound with ctypes in k8s_operator_libs_tpu_torch/kernels).
-// The launch entry point launches on the caller's stream, allocates
-// nothing, does not synchronise, and returns cudaGetLastError() so the
-// Python wrapper can raise on a refused launch.
+// The launch entry points launch on the caller's stream, allocate no
+// device memory, do not synchronise, and return a CUDA error code (0 on
+// success) so the Python wrapper can raise on a refused launch.
 //
 // K4 peer_reduce: on the launching device,
 //     dst[0:len] = (src_0[off:off+len] + ... + src_{k-1}[off:off+len])
@@ -22,10 +23,9 @@
 //   the psum of ici_allreduce_probe (k8s_operator_libs_tpu/health/
 //   probes.py:617-618), the +1 ppermute of ici_ring_probe (701-702) and
 //   the chained psum rounds and ppermute ring of the fused battery
-//   (health/fused.py:212-220).  kernels/collectives.py builds the
-//   all-reduce (a reduce-scatter, one launch at k = n per member, then an
-//   all-gather, launches at k = 1) and the ring shift (one launch at
-//   k = 1 per member) from it.
+//   (health/fused.py:212-220).  The all-reduce round (below) runs it as
+//   its reduce-scatter, one launch at k = n per member; the ring shift in
+//   kernels/collectives.py launches it at k = 1 on each member.
 //   Bound: memory (device memory, or the NVLink that carries a peer's
 //   bytes).  A launch reads k * len * 4 bytes and writes len * 4, against
 //   k - 1 adds and one division per element.
@@ -37,20 +37,78 @@
 //   otherwise every element takes the scalar path.  Loads are plain
 //   global loads (no read-only cache hint), which are valid on a peer's
 //   memory.
+//
+// K5 peer_gather: on the launching device, for each source s < k and
+//   each row r < rows,
+//     dst[off_s + r * pitch : + len_s] = src_s[r * len_s : + len_s]   (bytes)
+//   with up to kMaxSources sources, each on any device of the host (peer
+//   access as K4), their destination ranges disjoint.  With rows = 1 a
+//   piece lands whole at off_s; with rows > 1 each contiguous piece is a
+//   matrix of rows x len_s bytes whose rows land pitch bytes apart, which
+//   is how an all-gather along an inner dimension interleaves the
+//   members' pieces into the gathered tensor in one pass.  A byte copy,
+//   so it serves every dtype with one code path and is exact by
+//   construction.
+//   Replaces XLA's all-gathers: the all-gather phase of the psum rounds
+//   above (one launch per member copies every other member's reduced
+//   chunk) and the all-gathers of the sharded canary step
+//   (k8s_operator_libs_tpu/workloads/canary.py:211-267, the embedding's
+//   and the logits' gathers XLA inserts from P(None, "tp"), along the last
+//   dimension).
+//   Bound: memory (or the NVLink that carries a peer's bytes); it reads
+//   and writes rows * sum(len_s) bytes and computes nothing.
+//   Design: grid-stride loops over 16-byte vectors and over the bytes
+//   left at each row's ends.  A source takes the vector path when it and
+//   its destination sit at one offset past a 16-byte boundary and, with
+//   several rows, len_s and pitch are multiples of 16 (so every row
+//   shares that offset); a byte head brings each row to the boundary and
+//   a byte tail finishes it.  Otherwise the source is copied byte by
+//   byte.  Simple, not tuned.
+//
+// The round plan (collective_plan_*): one shape of collective (its
+// members' devices and ranges) as a CUDA graph of K4 and K5 nodes, so a
+// round costs the host one cudaGraphLaunch and the events that order it
+// against the members' streams, not 2n launches and three barriers.
+//   all-reduce: node RS_j (K4 at k = n, member j's chunk) on device j for
+//     every non-empty chunk, then node AG_j (K5 over every other member's
+//     chunk) on device j, each AG after every RS (graph edges, no host
+//     event; an empty join node between the phases measured slower, both
+//     in the launch and on the device).  all-gather: node AG_j alone (K5
+//     over every member's piece, rows interleaved as above).
+//   Launch: the first member's stream waits for every other member's
+//   stream (their inputs' producers), the graph runs on the first
+//   member's stream, and every other member's stream waits for it: after
+//   the call, later work on any member's stream follows every read of
+//   every input and output.  Members that share a stream need no event.
+//   Pointers: a plan keeps two instantiated graphs, each with the
+//   pointers and divisor its nodes hold.  A round that matches one
+//   replays it; otherwise the graph not used last is given the new ones
+//   (cudaGraphExecKernelNodeSetParams, which affects later launches
+//   only).  Two, because repeated rounds alternate between two sets of
+//   buffers (a probe's outputs, a chained round's input and output: the
+//   caching allocator hands back the block the round before last freed)
+//   and repointing 16 nodes costs the host about as much again as the
+//   Python around a round.  Outputs are the caller's fresh tensors, so a
+//   replay never writes a buffer that an earlier round handed out.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <new>
 
 #include "device_guard.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-// The cap on k; kernels/collectives.py holds the same number
-// (MAX_SOURCES) and a test compares the two.
+// The cap on k and on a round's members; kernels/collectives.py holds
+// the same number (MAX_SOURCES) and a test compares the two.
 constexpr int kMaxSources = 8;
-// Blocks per SM for the grid-stride loop: 8 x 256 threads fill an SM.
+// Blocks per SM for the grid-stride loops: 8 x 256 threads fill an SM.
 constexpr int kBlocksPerSM = 8;
+// Instantiated graphs a round plan keeps (see the plan's notes above).
+constexpr int kGraphs = 2;
 
 struct Sources {
   const float* p[kMaxSources];
@@ -100,12 +158,374 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int K>
-cudaError_t launch(const Sources& src, float* dst, size_t len, size_t head,
-                   size_t nvec, float divisor, int blocks, cudaStream_t s) {
-  peer_reduce_kernel<K>
-      <<<blocks, kThreads, 0, s>>>(src, dst, len, head, nvec, divisor);
-  return cudaGetLastError();
+struct Pieces {
+  const unsigned char* src[kMaxSources];
+  size_t off[kMaxSources];  // destination offset of the first row, bytes
+  size_t len[kMaxSources];  // bytes a row
+};
+
+__global__ void __launch_bounds__(kThreads)
+    peer_gather_kernel(Pieces p, int k, size_t rows, size_t pitch,
+                       unsigned char* dst) {
+  const size_t tid = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  for (int s = 0; s < k; ++s) {
+    const unsigned char* src = p.src[s];
+    unsigned char* out = dst + p.off[s];
+    const size_t len = p.len[s];
+    const uintptr_t mis = reinterpret_cast<uintptr_t>(src) & 15;
+    size_t head = len;  // misaligned: every byte one at a time
+    size_t nvec = 0;
+    if ((reinterpret_cast<uintptr_t>(out) & 15) == mis &&
+        (rows == 1 || (len % 16 == 0 && pitch % 16 == 0))) {
+      head = (16 - mis) & 15;
+      if (head > len) head = len;
+      nvec = (len - head) / 16;
+    }
+    const size_t edge = len - 16 * nvec;  // head + tail bytes a row
+    if (rows == 1) {
+      for (size_t i = tid; i < head; i += stride) out[i] = src[i];
+      const uint4* vs = reinterpret_cast<const uint4*>(src + head);
+      uint4* vd = reinterpret_cast<uint4*>(out + head);
+      for (size_t i = tid; i < nvec; i += stride) vd[i] = vs[i];
+      for (size_t i = head + 16 * nvec + tid; i < len; i += stride) {
+        out[i] = src[i];
+      }
+      continue;
+    }
+    for (size_t i = tid; i < rows * nvec; i += stride) {
+      const size_t r = i / nvec;
+      const size_t c = i - r * nvec;
+      reinterpret_cast<uint4*>(out + r * pitch + head)[c] =
+          reinterpret_cast<const uint4*>(src + r * len + head)[c];
+    }
+    for (size_t i = tid; i < rows * edge; i += stride) {
+      const size_t r = i / edge;
+      const size_t c = i - r * edge;
+      const size_t b = c < head ? c : c + 16 * nvec;
+      out[r * pitch + b] = src[r * len + b];
+    }
+  }
+}
+
+// The grid of a launch: enough blocks for `items` threads, at most
+// kBlocksPerSM a multiprocessor, at least one.
+int grid_for(size_t items, int sms) {
+  size_t want = (items + kThreads - 1) / kThreads;
+  const size_t cap = static_cast<size_t>(sms) * kBlocksPerSM;
+  if (want > cap) want = cap;
+  if (want < 1) want = 1;
+  return static_cast<int>(want);
+}
+
+int sm_count(int device, cudaError_t* err) {
+  int sms = 0;
+  *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  return sms;
+}
+
+// One K4 launch's arguments, as a kernel launch or a graph node takes
+// them.
+struct ReduceArgs {
+  Sources src;
+  float* dst;
+  size_t len;
+  size_t head;
+  size_t nvec;
+  float divisor;
+  int k;
+  int blocks;
+  void* params[6];
+
+  void* func() const {
+    switch (k) {
+      case 1: return reinterpret_cast<void*>(&peer_reduce_kernel<1>);
+      case 2: return reinterpret_cast<void*>(&peer_reduce_kernel<2>);
+      case 3: return reinterpret_cast<void*>(&peer_reduce_kernel<3>);
+      case 4: return reinterpret_cast<void*>(&peer_reduce_kernel<4>);
+      case 5: return reinterpret_cast<void*>(&peer_reduce_kernel<5>);
+      case 6: return reinterpret_cast<void*>(&peer_reduce_kernel<6>);
+      case 7: return reinterpret_cast<void*>(&peer_reduce_kernel<7>);
+      default: return reinterpret_cast<void*>(&peer_reduce_kernel<8>);
+    }
+  }
+
+  cudaKernelNodeParams node() {
+    params[0] = &src;
+    params[1] = &dst;
+    params[2] = &len;
+    params[3] = &head;
+    params[4] = &nvec;
+    params[5] = &divisor;
+    cudaKernelNodeParams np = {};
+    np.func = func();
+    np.gridDim = dim3(blocks);
+    np.blockDim = dim3(kThreads);
+    np.kernelParams = params;
+    return np;
+  }
+};
+
+// srcs[s] + off for s < k, summed into dst[0:len] / divisor.
+ReduceArgs reduce_args(const void* const* srcs, int k, size_t off,
+                       size_t len, float* dst, float divisor, int sms) {
+  ReduceArgs a = {};
+  a.k = k;
+  a.dst = dst;
+  a.len = len;
+  a.divisor = divisor;
+  // Every pointer's distance past a 16-byte boundary: one shared value
+  // lets a scalar head align them all for the float4 body.
+  const uintptr_t mis = reinterpret_cast<uintptr_t>(dst) & 15;
+  bool aligned = true;
+  for (int s = 0; s < k; ++s) {
+    a.src.p[s] = static_cast<const float*>(srcs[s]) + off;
+    aligned = aligned && (reinterpret_cast<uintptr_t>(a.src.p[s]) & 15) == mis;
+  }
+  // Without a shared alignment, head and nvec stay 0 and the kernel's
+  // grid-stride tail loop covers every element.
+  if (aligned) {
+    a.head = ((16 - mis) & 15) / sizeof(float);
+    if (a.head > len) a.head = len;
+    a.nvec = (len - a.head) / 4;
+  }
+  const size_t rest = len - 4 * a.nvec;
+  a.blocks = grid_for(a.nvec > rest ? a.nvec : rest, sms);
+  return a;
+}
+
+struct GatherArgs {
+  Pieces p;
+  int k;
+  size_t rows;
+  size_t pitch;
+  unsigned char* dst;
+  int blocks;
+  void* params[5];
+
+  cudaKernelNodeParams node() {
+    params[0] = &p;
+    params[1] = &k;
+    params[2] = &rows;
+    params[3] = &pitch;
+    params[4] = &dst;
+    cudaKernelNodeParams np = {};
+    np.func = reinterpret_cast<void*>(&peer_gather_kernel);
+    np.gridDim = dim3(blocks);
+    np.blockDim = dim3(kThreads);
+    np.kernelParams = params;
+    return np;
+  }
+};
+
+GatherArgs gather_args(const void* const* srcs, const size_t* offs,
+                       const size_t* lens, int k, size_t rows, size_t pitch,
+                       void* dst, int sms) {
+  GatherArgs a = {};
+  a.k = k;
+  a.rows = rows;
+  a.pitch = pitch;
+  a.dst = static_cast<unsigned char*>(dst);
+  size_t most = 0;
+  for (int s = 0; s < k; ++s) {
+    a.p.src[s] = static_cast<const unsigned char*>(srcs[s]);
+    a.p.off[s] = offs[s];
+    a.p.len[s] = lens[s];
+    if (lens[s] > most) most = lens[s];
+  }
+  a.blocks = grid_for(rows * ((most + 15) / 16), sms);
+  return a;
+}
+
+// -- the round plan ---------------------------------------------------------
+
+enum Kind { kAllReduce = 0, kAllGather = 1 };
+
+// One instantiated graph of a plan, and the pointers and divisor its
+// nodes hold (when `current`).
+struct Graph {
+  cudaGraph_t graph = nullptr;
+  cudaGraphExec_t exec = nullptr;
+  cudaGraphNode_t rs[kMaxSources] = {};
+  cudaGraphNode_t ag[kMaxSources] = {};
+  uint64_t in[kMaxSources] = {};
+  uint64_t out[kMaxSources] = {};
+  float divisor = 0.0f;
+  bool current = false;
+};
+
+struct Plan {
+  int kind;
+  int n;
+  int devices[kMaxSources];
+  int sms[kMaxSources];
+  // all-reduce: member i's chunk [begin, end) in elements; all-gather:
+  // member i's piece lands at bytes [begin, end) of each of `rows` rows
+  // of every output, the rows `pitch` bytes apart.
+  size_t begin[kMaxSources];
+  size_t end[kMaxSources];
+  size_t rows;
+  size_t pitch;
+  cudaEvent_t ready[kMaxSources];  // recorded on member i's stream
+  Graph graphs[kGraphs];
+  int last = 0;  // the graph the last round ran
+  std::mutex mu;
+};
+
+// Member j's nodes for the pointers of one round.
+ReduceArgs rs_args(const Plan& p, const uint64_t* in, const uint64_t* out,
+                   float divisor, int j) {
+  const void* srcs[kMaxSources];
+  for (int i = 0; i < p.n; ++i) srcs[i] = reinterpret_cast<const void*>(in[i]);
+  float* dst = reinterpret_cast<float*>(out[j]) + p.begin[j];
+  return reduce_args(srcs, p.n, p.begin[j], p.end[j] - p.begin[j], dst,
+                     divisor, p.sms[j]);
+}
+
+GatherArgs ag_args(const Plan& p, const uint64_t* in, const uint64_t* out,
+                   int j) {
+  const void* srcs[kMaxSources];
+  size_t offs[kMaxSources];
+  size_t lens[kMaxSources];
+  int k = 0;
+  for (int i = 0; i < p.n; ++i) {
+    if (p.end[i] == p.begin[i]) continue;
+    if (p.kind == kAllReduce) {
+      if (i == j) continue;  // member j reduced its own chunk in place
+      srcs[k] = reinterpret_cast<const float*>(out[i]) + p.begin[i];
+      offs[k] = p.begin[i] * sizeof(float);
+      lens[k] = (p.end[i] - p.begin[i]) * sizeof(float);
+    } else {
+      srcs[k] = reinterpret_cast<const void*>(in[i]);
+      offs[k] = p.begin[i];
+      lens[k] = p.end[i] - p.begin[i];
+    }
+    ++k;
+  }
+  return gather_args(srcs, offs, lens, k, p.rows, p.pitch,
+                     reinterpret_cast<void*>(out[j]), p.sms[j]);
+}
+
+bool has_rs(const Plan& p, int j) {
+  return p.kind == kAllReduce && p.end[j] > p.begin[j];
+}
+
+bool has_ag(const Plan& p, int j) {
+  // An all-reduce member with every other chunk empty copies nothing.
+  int k = 0;
+  for (int i = 0; i < p.n; ++i) {
+    if (p.end[i] > p.begin[i] && !(p.kind == kAllReduce && i == j)) ++k;
+  }
+  return k > 0;
+}
+
+cudaError_t add_nodes(const Plan& p, Graph& g, const uint64_t* in,
+                      const uint64_t* out, float divisor) {
+  cudaError_t err = cudaGraphCreate(&g.graph, 0);
+  if (err != cudaSuccess) return err;
+  cudaGraphNode_t reduced[kMaxSources];
+  int nreduced = 0;
+  for (int j = 0; j < p.n; ++j) {
+    if (!has_rs(p, j)) continue;
+    const DeviceGuard guard(p.devices[j]);  // the node runs on device j
+    if (guard.err != cudaSuccess) return guard.err;
+    ReduceArgs a = rs_args(p, in, out, divisor, j);
+    cudaKernelNodeParams np = a.node();
+    err = cudaGraphAddKernelNode(&g.rs[j], g.graph, nullptr, 0, &np);
+    if (err != cudaSuccess) return err;
+    reduced[nreduced++] = g.rs[j];
+  }
+  for (int j = 0; j < p.n; ++j) {
+    if (!has_ag(p, j)) continue;
+    const DeviceGuard guard(p.devices[j]);
+    if (guard.err != cudaSuccess) return guard.err;
+    GatherArgs a = ag_args(p, in, out, j);
+    cudaKernelNodeParams np = a.node();
+    err = cudaGraphAddKernelNode(&g.ag[j], g.graph, reduced, nreduced, &np);
+    if (err != cudaSuccess) return err;
+  }
+  const DeviceGuard guard(p.devices[0]);
+  if (guard.err != cudaSuccess) return guard.err;
+  return cudaGraphInstantiate(&g.exec, g.graph, 0);
+}
+
+cudaError_t build_graph(const Plan& p, Graph& g, const uint64_t* in,
+                        const uint64_t* out, float divisor) {
+  const cudaError_t err = add_nodes(p, g, in, out, divisor);
+  if (err != cudaSuccess) {
+    if (g.graph) cudaGraphDestroy(g.graph);
+    g.graph = nullptr;
+    g.exec = nullptr;
+  }
+  return err;
+}
+
+cudaError_t repoint_graph(const Plan& p, Graph& g, const uint64_t* in,
+                          const uint64_t* out, float divisor) {
+  for (int j = 0; j < p.n; ++j) {
+    if (has_rs(p, j)) {
+      ReduceArgs a = rs_args(p, in, out, divisor, j);
+      cudaKernelNodeParams np = a.node();
+      cudaError_t err = cudaGraphExecKernelNodeSetParams(g.exec, g.rs[j], &np);
+      if (err != cudaSuccess) return err;
+    }
+    if (has_ag(p, j)) {
+      GatherArgs a = ag_args(p, in, out, j);
+      cudaKernelNodeParams np = a.node();
+      cudaError_t err = cudaGraphExecKernelNodeSetParams(g.exec, g.ag[j], &np);
+      if (err != cudaSuccess) return err;
+    }
+  }
+  return cudaSuccess;
+}
+
+bool holds(const Plan& p, const Graph& g, const uint64_t* in,
+           const uint64_t* out, float divisor) {
+  if (!g.current || g.divisor != divisor) return false;
+  for (int i = 0; i < p.n; ++i) {
+    if (g.in[i] != in[i] || g.out[i] != out[i]) return false;
+  }
+  return true;
+}
+
+// The graph for this round's pointers: one that holds them, or the one
+// not used last, made or repointed.
+cudaError_t graph_for(Plan& p, const uint64_t* in, const uint64_t* out,
+                      float divisor, cudaGraphExec_t* exec) {
+  int pick = -1;
+  for (int k = 0; k < kGraphs && pick < 0; ++k) {
+    if (holds(p, p.graphs[k], in, out, divisor)) pick = k;
+  }
+  if (pick < 0) {
+    pick = (p.last + 1) % kGraphs;
+    Graph& g = p.graphs[pick];
+    // A failed repoint leaves the nodes' pointers unknown: a later round
+    // repoints them all again.
+    g.current = false;
+    const cudaError_t err = g.exec ? repoint_graph(p, g, in, out, divisor)
+                                   : build_graph(p, g, in, out, divisor);
+    if (err != cudaSuccess) return err;
+    for (int i = 0; i < p.n; ++i) {
+      g.in[i] = in[i];
+      g.out[i] = out[i];
+    }
+    g.divisor = divisor;
+    g.current = true;
+  }
+  p.last = pick;
+  *exec = p.graphs[pick].exec;
+  return cudaSuccess;
+}
+
+void destroy_plan(Plan* p) {
+  for (Graph& g : p->graphs) {
+    if (g.exec) cudaGraphExecDestroy(g.exec);
+    if (g.graph) cudaGraphDestroy(g.graph);
+  }
+  for (int i = 0; i < p->n; ++i) {
+    if (p->ready[i]) cudaEventDestroy(p->ready[i]);
+  }
+  delete p;
 }
 
 }  // namespace
@@ -140,51 +560,147 @@ int collective_peer_reduce(const void* const* srcs, int k, size_t off,
   if (k < 1 || k > kMaxSources || len == 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Sources src = {};
-  // Every pointer's distance past a 16-byte boundary: one shared value
-  // lets a scalar head align them all for the float4 body.
-  const uintptr_t mis = reinterpret_cast<uintptr_t>(dst) & 15;
-  bool aligned = true;
-  for (int s = 0; s < k; ++s) {
-    src.p[s] = static_cast<const float*>(srcs[s]) + off;
-    aligned = aligned && (reinterpret_cast<uintptr_t>(src.p[s]) & 15) == mis;
-  }
-  // Without a shared alignment, head and nvec stay 0 and the kernel's
-  // grid-stride tail loop covers every element.
-  size_t head = 0;
-  size_t nvec = 0;
-  if (aligned) {
-    head = ((16 - mis) & 15) / sizeof(float);
-    if (head > len) head = len;
-    nvec = (len - head) / 4;
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
+  cudaError_t err;
+  const int sms = sm_count(device, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ReduceArgs a = reduce_args(srcs, k, off, len, dst, divisor, sms);
+  cudaKernelNodeParams np = a.node();
+  err = cudaLaunchKernel(np.func, np.gridDim, np.blockDim, np.kernelParams,
+                         0, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
+}
+
+int collective_peer_gather(const void* const* srcs, const size_t* offs,
+                           const size_t* lens, int k, size_t rows,
+                           size_t pitch, void* dst, int device,
+                           void* stream) {
+  if (k < 1 || k > kMaxSources || rows < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
-  // The grid is sized here, not by the Python wrapper as K1's is: an
-  // all-reduce round makes 64 launches from the host, and the host's
-  // time per launch bounds the round.
-  int sms = 0;
-  cudaError_t err =
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaError_t err;
+  const int sms = sm_count(device, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t items = nvec > len - 4 * nvec ? nvec : len - 4 * nvec;
-  size_t want = (items + kThreads - 1) / kThreads;
-  const size_t cap = static_cast<size_t>(sms) * kBlocksPerSM;
-  if (want > cap) want = cap;
-  if (want < 1) want = 1;
-  const int blocks = static_cast<int>(want);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (k) {
-    case 1: err = launch<1>(src, dst, len, head, nvec, divisor, blocks, s); break;
-    case 2: err = launch<2>(src, dst, len, head, nvec, divisor, blocks, s); break;
-    case 3: err = launch<3>(src, dst, len, head, nvec, divisor, blocks, s); break;
-    case 4: err = launch<4>(src, dst, len, head, nvec, divisor, blocks, s); break;
-    case 5: err = launch<5>(src, dst, len, head, nvec, divisor, blocks, s); break;
-    case 6: err = launch<6>(src, dst, len, head, nvec, divisor, blocks, s); break;
-    case 7: err = launch<7>(src, dst, len, head, nvec, divisor, blocks, s); break;
-    default: err = launch<8>(src, dst, len, head, nvec, divisor, blocks, s); break;
+  GatherArgs a = gather_args(srcs, offs, lens, k, rows, pitch, dst, sms);
+  cudaKernelNodeParams np = a.node();
+  err = cudaLaunchKernel(np.func, np.gridDim, np.blockDim, np.kernelParams,
+                         0, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
+}
+
+// A round plan for n members on devices[]: kind 0 all-reduce (member i's
+// chunk is elements [begin[i], end[i]) of an fp32 shard; rows 1), kind 1
+// all-gather (member i's piece is `rows` rows that land at bytes
+// [begin[i], end[i]) of each row of every output, the rows `pitch` bytes
+// apart).  Writes the handle to *plan; returns a CUDA error code.
+int collective_plan_create(int kind, int n, const int* devices,
+                           const size_t* begin, const size_t* end,
+                           size_t rows, size_t pitch, void** plan) {
+  if (n < 1 || n > kMaxSources || rows < 1 ||
+      (kind != kAllReduce && kind != kAllGather) ||
+      (kind == kAllReduce && rows != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Plan* p = new (std::nothrow) Plan();
+  if (!p) return static_cast<int>(cudaErrorMemoryAllocation);
+  p->kind = kind;
+  p->n = n;
+  p->rows = rows;
+  p->pitch = pitch;
+  cudaError_t err = cudaSuccess;
+  for (int i = 0; i < n && err == cudaSuccess; ++i) {
+    if (end[i] < begin[i]) err = cudaErrorInvalidValue;
+    p->devices[i] = devices[i];
+    p->begin[i] = begin[i];
+    p->end[i] = end[i];
+    if (err == cudaSuccess) p->sms[i] = sm_count(devices[i], &err);
+    if (err == cudaSuccess) {
+      const DeviceGuard guard(devices[i]);
+      err = guard.err;
+      if (err == cudaSuccess) {
+        err = cudaEventCreateWithFlags(&p->ready[i], cudaEventDisableTiming);
+      }
+    }
+  }
+  if (err != cudaSuccess) {
+    destroy_plan(p);
+    return static_cast<int>(err);
+  }
+  *plan = p;
+  return 0;
+}
+
+// One round: ptrs holds in[n], out[n] and streams[n]; member i reads
+// in[i] and writes out[i] (device pointers on devices[i]) and its stream
+// is streams[i].  Returns a CUDA error code.
+int collective_plan_launch(void* plan, const uint64_t* ptrs, float divisor) {
+  Plan& p = *static_cast<Plan*>(plan);
+  const uint64_t* in = ptrs;
+  const uint64_t* out = ptrs + p.n;
+  const uint64_t* streams = ptrs + 2 * p.n;
+  std::lock_guard<std::mutex> lock(p.mu);
+  cudaGraphExec_t exec = nullptr;
+  cudaError_t err = graph_for(p, in, out, divisor, &exec);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t hub = reinterpret_cast<cudaStream_t>(streams[0]);
+  // A stream shared with an earlier member is ordered already.
+  auto seen = [&](int i) {
+    for (int h = 0; h < i; ++h) {
+      if (streams[h] == streams[i]) return true;
+    }
+    return false;
+  };
+  int current = -1;
+  auto on = [&](int device) {
+    if (device == current) return cudaSuccess;
+    current = device;
+    return cudaSetDevice(device);
+  };
+  int prev = 0;
+  err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  current = prev;
+  for (int i = 1; i < p.n && err == cudaSuccess; ++i) {
+    if (seen(i)) continue;
+    cudaStream_t si = reinterpret_cast<cudaStream_t>(streams[i]);
+    err = on(p.devices[i]);
+    if (err == cudaSuccess) err = cudaEventRecord(p.ready[i], si);
+    if (err == cudaSuccess) err = cudaStreamWaitEvent(hub, p.ready[i], 0);
+  }
+  if (err == cudaSuccess) err = on(p.devices[0]);
+  if (err == cudaSuccess) err = cudaGraphLaunch(exec, hub);
+  bool recorded = false;
+  for (int i = 1; i < p.n && err == cudaSuccess; ++i) {
+    if (seen(i)) continue;
+    if (!recorded) {
+      err = on(p.devices[0]);
+      if (err == cudaSuccess) err = cudaEventRecord(p.ready[0], hub);
+      recorded = true;
+    }
+    if (err == cudaSuccess) err = on(p.devices[i]);
+    if (err == cudaSuccess) {
+      err = cudaStreamWaitEvent(reinterpret_cast<cudaStream_t>(streams[i]),
+                                p.ready[0], 0);
+    }
+  }
+  if (current != prev) {
+    const cudaError_t back = cudaSetDevice(prev);
+    if (err == cudaSuccess) err = back;
   }
   return static_cast<int>(err);
+}
+
+// The K4 and K5 nodes of the plan's graph: rs[j] and ag[j] are 1 where
+// member j has that node.
+void collective_plan_nodes(void* plan, int* rs, int* ag) {
+  const Plan& p = *static_cast<Plan*>(plan);
+  for (int j = 0; j < p.n; ++j) {
+    rs[j] = has_rs(p, j);
+    ag[j] = has_ag(p, j);
+  }
 }
 
 }  // extern "C"

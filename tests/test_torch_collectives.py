@@ -145,6 +145,52 @@ def test_all_reduce_matches_psum_bit_for_bit(cpu_devices, n):
 
 
 @pytest.mark.parametrize("n", MEMBERS)
+@pytest.mark.parametrize("into", ["new", "given", "in_place"])
+def test_persistent_all_reduce_matches_psum_bit_for_bit(cpu_devices, n,
+                                                         into):
+    """Each call of ``all_reduce_init``'s function is a round of the
+    shards' current values into the same outputs, in place included."""
+    host = _host(n, seed=300 + n)
+    host[0, 5] = np.nan
+    shards = _members(host)
+    out = {"new": None, "given": [torch.empty_like(s) for s in shards],
+           "in_place": shards}[into]
+    start = collectives.all_reduce_init(shards, divisor=float(n), out=out)
+    if into == "in_place":
+        shards = [s.clone() for s in shards]  # the round overwrites them
+    want = _jax_collective(
+        cpu_devices[:n], lambda x: jax.lax.psum(x, "ici"), host
+    ) / np.float32(n)
+    got = start()
+    if out is not None:
+        assert got == out
+    for j in range(n):
+        np.testing.assert_array_equal(_bits(got[j].numpy()), _bits(want[j]))
+    if into != "in_place":
+        for s in shards:  # new values reach the next round
+            s.mul_(2.0)
+        again = start()
+        assert again is got
+        for j in range(n):
+            np.testing.assert_array_equal(_bits(again[j].numpy()),
+                                          _bits(want[j] * np.float32(2)))
+
+
+def test_persistent_all_reduce_checks_its_outputs():
+    shards = [torch.zeros(4) for _ in range(3)]
+    with pytest.raises(ValueError, match="3 members, 2 outputs"):
+        collectives.all_reduce_init(shards, out=[torch.zeros(4)] * 2)
+    with pytest.raises(ValueError, match="shape and device"):
+        collectives.all_reduce_init(shards, out=[torch.zeros(5)] * 3)
+    with pytest.raises(TypeError, match="want torch.float32"):
+        collectives.all_reduce_init(
+            shards, out=[torch.zeros(4, dtype=torch.int32)] * 3
+        )
+    with pytest.raises(ValueError, match="at most 8 members"):
+        collectives.all_reduce_init([torch.zeros(4)] * 9)
+
+
+@pytest.mark.parametrize("n", MEMBERS)
 def test_ring_shift_matches_ppermute(cpu_devices, n):
     host = _host(n, seed=100 + n)
     perm = [(i, (i + 1) % n) for i in range(n)]
@@ -222,6 +268,13 @@ def _zero_sum(shards, divisor=1.0):
     return [torch.zeros_like(s) for s in shards]
 
 
+def _persistent(fake):
+    """``all_reduce_init`` whose rounds are ``fake``'s."""
+    return lambda shards, divisor=1.0, out=None: (
+        lambda: fake(list(shards), divisor)
+    )
+
+
 @pytest.mark.parametrize(
     "path", ["ring_probe", "fused_ring", "unfused_psum"]
 )
@@ -231,6 +284,8 @@ def test_dropped_traffic_fails_with_jax_details(cpu_devices, monkeypatch, n,
     if path == "unfused_psum":
         monkeypatch.setattr(jax.lax, "psum", lambda x, axis_name: x)
         monkeypatch.setattr(collectives, "all_reduce", _dropped_sum)
+        monkeypatch.setattr(collectives, "all_reduce_init",
+                            _persistent(_dropped_sum))
     else:
         monkeypatch.setattr(jax.lax, "ppermute",
                             lambda x, axis_name, perm: x)
@@ -261,6 +316,7 @@ def test_dropped_traffic_fails_with_jax_details(cpu_devices, monkeypatch, n,
 def test_wrong_sum_fails_with_jax_details(cpu_devices, monkeypatch, n, fused):
     monkeypatch.setattr(jax.lax, "psum", lambda x, axis_name: x * 0)
     monkeypatch.setattr(collectives, "all_reduce", _zero_sum)
+    monkeypatch.setattr(collectives, "all_reduce_init", _persistent(_zero_sum))
     kw = dict(SMALL, **FAST, fused=fused)
     j = jprobes.run_host_probe(cpu_devices[:n], **kw)
     t = tprobes.run_host_probe([CPU] * n, **kw)
@@ -404,3 +460,208 @@ def test_collectives_leave_their_inputs_alone():
     collectives.ring_shift(shards)
     for row, s in zip(host, shards):
         np.testing.assert_array_equal(s.numpy(), row)
+
+
+# --- K5's plain version, all_gather and the list-level autograd functions ------
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+def test_peer_gather_plain_places_each_piece(k, dtype):
+    rng = np.random.default_rng(k)
+    lens = [int(x) for x in rng.integers(1, 50, k)]
+    offsets, at = [], 3
+    for n in lens:
+        offsets.append(at)
+        at += n + int(rng.integers(0, 4))
+    pieces = [torch.from_numpy(rng.standard_normal(n).astype(np.float32)
+                               * 100).to(dtype) for n in lens]
+    dst = torch.full((at + 2,), 7).to(dtype)
+    want = dst.clone()
+    got = collectives.peer_gather(dst, pieces, offsets)
+    assert got is dst
+    for p, off in zip(pieces, offsets):
+        want[off:off + p.numel()] = p
+    assert torch.equal(dst, want)
+
+
+def test_peer_gather_checks_its_inputs():
+    dst = torch.zeros(16)
+    with pytest.raises(ValueError, match="1 to 8 pieces"):
+        collectives.peer_gather(dst, [], [])
+    with pytest.raises(ValueError, match="1 to 8 pieces"):
+        collectives.peer_gather(dst, [torch.zeros(1)] * 9, list(range(9)))
+    with pytest.raises(ValueError, match="overlap"):
+        collectives.peer_gather(dst, [torch.zeros(4)] * 2, [0, 3])
+    with pytest.raises(ValueError, match="overruns"):
+        collectives.peer_gather(dst, [torch.zeros(4)], [13])
+    with pytest.raises(TypeError):
+        collectives.peer_gather(dst, [torch.zeros(4, dtype=torch.int32)], [0])
+    with pytest.raises(ValueError, match="offsets"):
+        collectives.peer_gather(dst, [torch.zeros(4)], [0, 4])
+
+
+@pytest.mark.parametrize("k,rows,width,gap", [(1, 3, 4, 0), (2, 5, 3, 1),
+                                                (4, 8, 16, 0), (3, 2, 7, 5)])
+def test_peer_gather_plain_interleaves_rows(k, rows, width, gap):
+    """With rows > 1 each piece's rows land ``pitch`` elements apart,
+    the rest of ``dst`` untouched."""
+    rng = np.random.default_rng(rows * 10 + k)
+    pitch = k * width + gap
+    pieces = [torch.from_numpy(rng.standard_normal((rows, width))
+                               .astype(np.float32)) for _ in range(k)]
+    offsets = [i * width + gap for i in range(k)]
+    dst = torch.full((rows * pitch,), 7.0)
+    want = dst.clone().view(rows, pitch)
+    for p, off in zip(pieces, offsets):
+        want[:, off:off + width] = p
+    collectives.peer_gather(dst, pieces, offsets, rows, pitch)
+    assert torch.equal(dst, want.view(-1))
+
+
+def test_peer_gather_checks_its_rows():
+    dst = torch.zeros(4, 10)
+    piece = torch.zeros(4, 3)
+    collectives.peer_gather(dst, [piece, piece], [0, 5], 4, 10)
+    with pytest.raises(ValueError, match="not 4 rows"):
+        collectives.peer_gather(dst, [torch.zeros(10)], [0], 4, 10)
+    with pytest.raises(ValueError, match="overrun the pitch"):
+        collectives.peer_gather(dst, [piece], [8], 4, 10)
+    with pytest.raises(ValueError, match="overlap"):
+        collectives.peer_gather(dst, [piece, piece], [0, 2], 4, 10)
+    with pytest.raises(ValueError, match="overruns dst"):
+        collectives.peer_gather(dst, [piece], [0], 4, 13)
+    with pytest.raises(ValueError, match="at least one row"):
+        collectives.peer_gather(dst, [piece], [0], 0, 10)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("dim", [0, 1, 2, -1])
+def test_all_gather_of_three_dimensions_is_concatenation(n, dim):
+    rng = np.random.default_rng(n + 7)
+    host = rng.standard_normal((n, 2, 3, 5)).astype(np.float32)
+    got = collectives.all_gather(_members(host), dim=dim)
+    want = np.concatenate(list(host), axis=dim)
+    for out in got:
+        assert out.shape == want.shape and out.is_contiguous()
+        np.testing.assert_array_equal(_bits(out.numpy()), _bits(want))
+
+
+@pytest.mark.parametrize("n", MEMBERS)
+@pytest.mark.parametrize("axis", [0, 1])
+def test_all_gather_matches_jax_all_gather(cpu_devices, n, axis):
+    host = _host(n, seed=200 + n, elems=3 * 7).reshape(n, 3, 7)
+    want = _jax_collective(
+        cpu_devices[:n],
+        lambda x: jax.lax.all_gather(x, "ici", axis=axis + 1, tiled=True),
+        host,
+    )
+    got = collectives.all_gather(_members(host), dim=axis)
+    assert len(got) == n
+    for j in range(n):
+        assert got[j].shape == want[j].shape
+        np.testing.assert_array_equal(_bits(got[j].numpy()), _bits(want[j]))
+
+
+def test_all_gather_checks_its_members():
+    with pytest.raises(ValueError, match="has shape"):
+        collectives.all_gather([torch.zeros(2, 3), torch.zeros(3, 2)])
+    with pytest.raises(TypeError, match="want a tensor"):
+        collectives.all_gather([3, torch.zeros(2)])
+    with pytest.raises(ValueError, match="at most 8 members"):
+        collectives.all_gather([torch.zeros(2)] * 9)
+    with pytest.raises(ValueError, match="no members"):
+        collectives.all_gather([])
+    out = collectives.all_gather([torch.ones(2, dtype=torch.int64)] * 3)
+    assert out[0].dtype == torch.int64 and out[0].tolist() == [1] * 6
+
+
+def _dense_and_members(n: int, seed: int):
+    """A replicated input x [5, 6] and a weight split by columns across n
+    members: the dense reference and the members' tensors."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((5, 6)).astype(np.float32)
+    w = rng.standard_normal((6, 3 * n)).astype(np.float32)
+    v = rng.standard_normal((3 * n, 4)).astype(np.float32)
+    return x, w, v
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_gather_and_copy_give_the_dense_gradients(n):
+    """Column-parallel product, its output gathered, every member's copy
+    of the loss summed: each member's gradients are those of one dense
+    loss (Megatron's pairing)."""
+    x, w, _ = _dense_and_members(n, n)
+    xd = torch.tensor(x, requires_grad=True)
+    wd = torch.tensor(w, requires_grad=True)
+    ((xd @ wd) ** 2).sum().backward()
+    xs = [torch.tensor(x, requires_grad=True) for _ in range(n)]
+    ws = [torch.tensor(w[:, 3 * j:3 * j + 3], requires_grad=True)
+          for j in range(n)]
+    ys = collectives.gather_from_members(
+        [a @ b for a, b in zip(collectives.copy_to_members(xs), ws)], -1
+    )
+    torch.autograd.backward([(y ** 2).sum() for y in ys])
+    for y in ys:
+        torch.testing.assert_close(y, (xd @ wd).detach())
+    for j in range(n):
+        torch.testing.assert_close(ws[j].grad, wd.grad[:, 3 * j:3 * j + 3])
+        torch.testing.assert_close(xs[j].grad, xd.grad)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_row_parallel_reduce_gives_the_dense_gradients(n):
+    """Column- then row-parallel product (an MLP split across n members),
+    the partial outputs all-reduced: the members' gradients are the dense
+    ones and every member's output is the dense output."""
+    x, w, v = _dense_and_members(n, 10 + n)
+    xd = torch.tensor(x, requires_grad=True)
+    wd, vd = (torch.tensor(a, requires_grad=True) for a in (w, v))
+    (torch.tanh(xd @ wd) @ vd).pow(2).sum().backward()
+    xs = [torch.tensor(x, requires_grad=True) for _ in range(n)]
+    ws = [torch.tensor(w[:, 3 * j:3 * j + 3], requires_grad=True)
+          for j in range(n)]
+    vs = [torch.tensor(v[3 * j:3 * j + 3], requires_grad=True)
+          for j in range(n)]
+    parts = [torch.tanh(a @ b) @ c
+             for a, b, c in zip(collectives.copy_to_members(xs), ws, vs)]
+    outs = collectives.reduce_from_members(parts)
+    torch.autograd.backward([o.pow(2).sum() for o in outs])
+    for o in outs:
+        torch.testing.assert_close(o, torch.tanh(xd @ wd).detach() @ vd.detach())
+    for j in range(n):
+        torch.testing.assert_close(ws[j].grad, wd.grad[:, 3 * j:3 * j + 3])
+        torch.testing.assert_close(vs[j].grad, vd.grad[3 * j:3 * j + 3])
+        torch.testing.assert_close(xs[j].grad, xd.grad)
+
+
+@pytest.mark.parametrize(
+    "fn", ["copy_to_members", "reduce_from_members", "gather_from_members"]
+)
+def test_one_member_functions_are_the_identity(fn):
+    x = torch.randn(3, 4, requires_grad=True)
+    (y,) = getattr(collectives, fn)([x])
+    assert y is x
+
+
+@pytest.mark.parametrize("devices", [(0,) * 8, (0, 1, 0, 1), (3, 2, 1, 0),
+                                     (0, 0, 1)])
+def test_round_outputs_are_fresh_with_one_allocation_a_device(devices):
+    """The CUDA rounds' outputs (made here from CPU shards, which only
+    lend their dtype and device): new tensors, one allocation for the
+    members that share a device."""
+    shards = [torch.zeros(3, 5, dtype=torch.bfloat16) for _ in devices]
+    outs, ptrs = collectives._outputs(shards, devices, (3, 5), 3 * 5 * 2)
+    assert len(outs) == len(devices)
+    assert ptrs == [o.data_ptr() for o in outs]
+    bases = {}
+    for out, d in zip(outs, devices):
+        assert out.shape == (3, 5) and out.dtype == torch.bfloat16
+        assert out.is_contiguous()
+        bases.setdefault(d, set()).add(out.untyped_storage().data_ptr())
+    assert all(len(b) == 1 for b in bases.values())
+    assert len({p for b in bases.values() for p in b}) == len(bases)
+    ptrs = [o.data_ptr() for o in outs]
+    assert len(set(ptrs)) == len(ptrs)
+    assert not any(o.data_ptr() == s.data_ptr()
+                   for o in outs for s in shards)

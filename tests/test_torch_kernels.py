@@ -11,7 +11,9 @@ the JAX package in ``tests/test_torch_ring_attention.py``.  K4
 (``peer_reduce``) is held on the card bit for bit: fp32 adds in index
 order and an IEEE division in both; its plain version and the
 collectives built on it are held against the JAX package in
-``tests/test_torch_collectives.py``.
+``tests/test_torch_collectives.py``.  K5 (``peer_gather``) is a byte
+copy, held on the card byte for byte, and so are the all-gather and the
+all-reduce round it carries.
 """
 
 from __future__ import annotations
@@ -22,12 +24,16 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from k8s_operator_libs_tpu_torch.kernels import (  # noqa: E402
+    all_gather,
     all_reduce,
+    all_reduce_init,
     block_attention,
     block_attention_plain,
     build,
     collectives,
     launch_counts,
+    peer_gather,
+    peer_gather_plain,
     peer_reduce,
     peer_reduce_plain,
     ring_shift,
@@ -154,6 +160,10 @@ def test_build_targets_sm90a_and_binds_every_entry_point():
         "attention_block_f32",
         "collective_peer_enable",
         "collective_peer_reduce",
+        "collective_peer_gather",
+        "collective_plan_create",
+        "collective_plan_launch",
+        "collective_plan_nodes",
     ):
         assert f"{symbol}(" in src
     # K4's cap on sources has one value on both sides of the binding.
@@ -277,6 +287,81 @@ def test_peer_reduce_matches_plain_version_on_the_card():
 
 
 @pytest.mark.cuda
+def test_peer_gather_and_rounds_match_plain_versions_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    before = peer_gather.launches
+    for k in (1, 2, 3, 8):
+        for n, skew in ((1 << 18, 0), (1001, 1), (5, 3)):
+            pieces = [torch.randn(n + skew, device=dev, generator=gen)[skew:]
+                      for _ in range(k)]
+            offsets = [i * (n + 2) + 1 for i in range(k)]
+            dst = torch.randn(k * (n + 2) + 4, device=dev, generator=gen)
+            want = dst.clone()
+            peer_gather(dst, pieces, offsets)
+            peer_gather_plain(want, pieces, offsets)
+            torch.cuda.synchronize()
+            assert torch.equal(dst.view(torch.int32), want.view(torch.int32))
+    # Rows landing a pitch apart (an all-gather along an inner
+    # dimension): 16-byte rows, and ragged ones that take the byte path.
+    for k, rows, width, skew in ((4, 64, 256, 0), (3, 17, 33, 1),
+                                 (2, 5, 8, 2)):
+        pitch = k * width + 3
+        pieces = [torch.randn(rows * width + skew, device=dev,
+                              generator=gen)[skew:] for _ in range(k)]
+        offsets = [i * width + 1 for i in range(k)]
+        dst = torch.randn(rows * pitch, device=dev, generator=gen)
+        want = dst.clone()
+        peer_gather(dst, pieces, offsets, rows, pitch)
+        peer_gather_plain(want, pieces, offsets, rows, pitch)
+        torch.cuda.synchronize()
+        assert torch.equal(dst.view(torch.int32), want.view(torch.int32))
+    assert peer_gather.launches == before + 15
+    half = torch.randn(3, 5, device=dev, generator=gen).to(torch.bfloat16)
+    for n in (2, 3, 4, 8):
+        shards = [torch.randn(7, 33, device=dev, generator=gen)
+                  for _ in range(n)]
+        for dim in (0, 1):
+            for out in all_gather(shards, dim):
+                assert torch.equal(out, torch.cat(shards, dim))
+        for out in all_gather([half] * n, -1):
+            assert torch.equal(out, torch.cat([half] * n, -1))
+        wide = [torch.randn(2, 16, 64, device=dev, generator=gen)
+                for _ in range(n)]
+        for out in all_gather(wide, -1):
+            assert torch.equal(out, torch.cat(wide, -1))
+        want = torch.empty(7 * 33, device=dev)
+        peer_reduce_plain(want, [s.view(-1) for s in shards], 0, float(n))
+        for _ in range(6):  # new pointers each round: the graph repointed
+            fresh = [s.clone() for s in shards]
+            outs = all_reduce(fresh, float(n))
+            for out in outs:
+                assert out.shape == (7, 33)
+                assert torch.equal(out.view(-1).view(torch.int32),
+                                   want.view(torch.int32))
+    # Chained rounds: each round's outputs are the next one's inputs.
+    s = [torch.full((1001,), float(i + 1), device=dev) for i in range(8)]
+    for _ in range(4):
+        s = all_reduce(s, divisor=8.0)
+    torch.cuda.synchronize()
+    assert all(bool((t == 4.5).all()) for t in s)
+    # Persistent rounds, into new outputs and in place (the mean of
+    # equal values is those values, so every round leaves 4.5).
+    s = [torch.full((1001,), float(i + 1), device=dev) for i in range(8)]
+    outs = all_reduce_init(s)()
+    torch.cuda.synchronize()
+    assert all(bool((t == 36.0).all()) for t in outs)
+    start = all_reduce_init(s, divisor=8.0, out=s)
+    for _ in range(3):
+        assert start() is start()
+    torch.cuda.synchronize()
+    assert all(bool((t == 4.5).all()) for t in s)
+
+
+@pytest.mark.cuda
 def test_collectives_across_cards():
     """The host's collectives over real peers: K4 reading other cards'
     buffers through peer access, the all-reduce and ring across every
@@ -321,6 +406,10 @@ def test_collectives_across_cards():
             ring = ring_shift(shards)
             for j in range(n):
                 same(ring[j], host[j - 1])
+            gathered = all_gather(shards, 0)
+            for out, d in zip(gathered, members):
+                assert out.device == d
+                same(out, host.reshape(-1))
     assert torch.cuda.current_device() == prev
     ar = probes.ici_allreduce_probe(cards)
     assert ar.ok, ar.detail

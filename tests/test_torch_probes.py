@@ -221,6 +221,7 @@ def test_multi_device_ici_fails_closed(monkeypatch, fused):
         raise RuntimeError("peer access 0->1 unavailable")
 
     monkeypatch.setattr(collectives, "all_reduce", no_peer_access)
+    monkeypatch.setattr(collectives, "all_reduce_init", no_peer_access)
     monkeypatch.setattr(collectives, "ring_shift", no_peer_access)
     checks = tprobes.run_host_probe([CPU, CPU], fused=fused, **SMALL, **FAST)
     by_name = {c.name: c for c in checks}
