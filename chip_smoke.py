@@ -61,15 +61,35 @@ Phases:
    and host time of its collectives a step; then the elastic runner at
    the same width over the 8 members in 2 slices: steps, an exclusion
    (8 to 4 members), steps, a rejoin, steps, with each resize's seconds
-   and the longest gap between steps.
+   and the longest gap between steps;
+11. the gate and the cross-host paths: the agent's unfused report from
+   a node labelled ``nvidia.com/gpu.product=NVIDIA-H100-80GB-HBM3`` and
+   ``nvidia.com/gpu.count`` = the card count, with no slice, which
+   ``NodeReportProber(generation_floors=True)`` must accept under the SXM
+   profile's HBM floor and reject when labelled with one GPU more; the
+   network-path checks over one member and over 8 members of the card,
+   cold and warm, the fused battery at their sizes, the
+   ``NetworkPathGateProber`` on the card's devices, and the gate over 8
+   members with member 0 keeping its value, which must fail with the JAX
+   package's detail; then D6: two child processes of this script form a
+   gloo world from torchrun-style env over a loopback store and run the
+   cross-host probe with the one-hot on the card (both must pass), then
+   with ``ring-c`` expected as well and a live listener as their DCN
+   peer (reachability passes, the collective fails naming ``ring-c``);
+   and a one-rank NCCL world in this process, where the probe must fail
+   closed.  NCCL refuses two ranks on one GPU, so the cross-process NCCL
+   all-reduce is not verified on a one-card machine.
 
-Kernel launch counts are zeroed just before each path of phases 4-10
+Kernel launch counts are zeroed just before each path of phases 4-11
 (unfused, fused cold, fused warm, agent, local prober, the collective
 paths, the ring paths, the battery with the deep flag, the canary, the
-sharded and elastic canaries) and read just after it: each path names
-the kernels it must launch (K1 and K2 on the battery paths, K3 on the
-ring paths, K4 and K5 on the all-reduce and sharded paths, K4 on the
-ring shift's), and no path may have fallen back from the fused battery.
+sharded and elastic canaries, the unfused agent of the labelled node,
+the network-path checks) and read just after it: each path names the
+kernels it must launch (K1 and K2 on the battery paths, K3 on the ring
+paths, K4 and K5 on the all-reduce, sharded and 8-member network paths,
+K4 on the ring shift's), and no path may have fallen back from the
+fused battery.  A child process that fails or outlives its time fails
+the run.
 Any failure exits non-zero and prints no result; so does a machine
 without a CUDA device.  The last line of standard output is one JSON
 object,
@@ -80,9 +100,12 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import socket
 import subprocess
 import sys
 import time
+from datetime import timedelta
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -134,11 +157,84 @@ SHARDED_FIRST_LOSS_ATOL = 1e-4
 NVLINK_GBPS = 450.0
 ICI_MEMBERS = 8
 ALLREDUCE_ELEMS = 1 << 20
+# Phase 11's cross-process world: one DCN group a process.
+DCN_GROUPS = ("ring-a", "ring-b")
+DCN_CHILD = "--dcn-child"
+DCN_CHILD_TIMEOUT_S = 300
+DCN_WARM_CALLS = 20
 
 
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dcn_child(group: str, peer: str) -> int:
+    """One process of phase 11's world: join it from the torchrun-style
+    env (gloo), run the cross-host probe over the card, then the battery
+    at small size with ring-c expected as well and ``peer`` as the DCN
+    peer; print one JSON line of the results."""
+    import torch
+    import torch.distributed as dist
+
+    from k8s_operator_libs_tpu_torch.health.agent import (
+        maybe_initialize_distributed,
+    )
+    from k8s_operator_libs_tpu_torch.health.probes import (
+        dcn_collective_probe,
+        run_host_probe,
+    )
+
+    dev = torch.device("cuda", 0)
+    require(maybe_initialize_distributed(backend="gloo"),
+            "the 2-process world did not form")
+    require(maybe_initialize_distributed(backend="gloo"),
+            "a second maybe_initialize_distributed call changed the world")
+    tensor_devices = []
+    all_reduce = dist.all_reduce
+
+    def recorded(tensor, *args, **kwargs):
+        tensor_devices.append(str(tensor.device))
+        return all_reduce(tensor, *args, **kwargs)
+
+    dist.all_reduce = recorded
+    try:
+        passing = dcn_collective_probe([dev], group, list(DCN_GROUPS))
+        checks = run_host_probe(
+            [dev], fused=True, allreduce_elems=8, dcn_peers=[peer],
+            dcn_group=group, dcn_expected_groups=[*DCN_GROUPS, "ring-c"],
+            **SMALL,
+        )
+    finally:
+        dist.all_reduce = all_reduce
+    # Warm calls, each rank entering together after a barrier: the
+    # first call's latency holds the world's connection set-up and the
+    # other rank's arrival.
+    warm = []
+    for _ in range(DCN_WARM_CALLS):
+        dist.barrier()
+        res = dcn_collective_probe([dev], group, list(DCN_GROUPS))
+        require(res.ok, f"warm DCN probe: {res.detail}")
+        warm.append(res.latency_ms)
+    dist.destroy_process_group()
+    by_name = {c.name: c.as_dict() for c in checks}
+    bad = [f"{c.name}: {c.detail}" for c in checks
+           if not c.ok and c.name != "dcn_collective"]
+    require(not bad, f"DCN child's battery: {bad}")
+    print(json.dumps({
+        "tensor_devices": tensor_devices,
+        "pass": passing.as_dict(),
+        "reach": by_name["dcn_reachability"],
+        "ring_c": by_name["dcn_collective"],
+        "warm_ms": sorted(warm),
+    }), flush=True)
+    return 0
 
 
 def nvidia_smi_name_power() -> str:
@@ -167,11 +263,20 @@ def main() -> int:
     from k8s_operator_libs_tpu_torch import hw
     from k8s_operator_libs_tpu_torch.health import fused
     from k8s_operator_libs_tpu_torch.health.agent import HealthAgent
+    from k8s_operator_libs_tpu_torch.artifacts import NetworkPathGateProber
+    from k8s_operator_libs_tpu_torch.health.fused import (
+        run_network_path_checks,
+    )
     from k8s_operator_libs_tpu_torch.health.probes import (
+        dcn_collective_probe,
         ici_allreduce_probe,
         ici_ring_attention_probe,
         ici_ring_probe,
         resolve_floors,
+    )
+    from k8s_operator_libs_tpu_torch.health.slice_prober import (
+        GPU_COUNT_LABELS,
+        GPU_PRODUCT_LABELS,
     )
     from k8s_operator_libs_tpu_torch.health.report import HealthReport
     from k8s_operator_libs_tpu_torch.kernels import build
@@ -391,8 +496,11 @@ def main() -> int:
                         f"peer_reduce k={k} n={n}: the NaN did not come out")
                 k4_cases += 1
             del srcs, dst, want
-    for n in (2, 3, 4, 8):
-        for elems in (ALLREDUCE_ELEMS, 1001):
+    for n in (2, 3, 4, 5, 8):
+        # The main path's 4 MiB, a length ragged against every n, and the
+        # network-path gate's 8 elements (chunks start on 16 bytes: two
+        # of 4 elements, and empty ones for the other members).
+        for elems in (ALLREDUCE_ELEMS, 1001, fused.NETWORK_ALLREDUCE_ELEMS):
             shards = [torch.randn(elems, device=dev, generator=gen)
                       for _ in range(n)]
             want = torch.empty(elems, device=dev)
@@ -424,7 +532,8 @@ def main() -> int:
           f"({k4_cases} cases: k 2, 3, 4, 5, 8; 2^20, 2^22, ragged, "
           f"unaligned, NaN), and so do all_reduce (one graph a round: K4 "
           f"and K5), its persistent round (into new outputs and in place) "
-          f"and ring_shift over 2, 3, 4 and 8 members of the card",
+          f"and ring_shift over 2, 3, 4, 5 and 8 members of the card "
+          f"(2^20, 1001 and {fused.NETWORK_ALLREDUCE_ELEMS} elements)",
           flush=True)
 
     # K5 byte for byte: a copy, so every byte agrees with the plain
@@ -1344,10 +1453,173 @@ def main() -> int:
             f"elastic losses {er.losses}")
     del er
 
+    # -- 11. the labelled gate, the network-path gate and D6 ----------------
+    # The agent's unfused report from a node labelled as GPU Feature
+    # Discovery labels an HGX H100 host, with no slice: the gate reads the
+    # accelerator and the count from the labels and applies the SXM
+    # profile's floors.
+    class LabelledNode(Node):
+        def __init__(self, name, annotations, gpus):
+            super().__init__(name, annotations)
+            self.labels = {GPU_PRODUCT_LABELS[0]: "NVIDIA-H100-80GB-HBM3",
+                           GPU_COUNT_LABELS[0]: str(gpus)}
+
+    client = RecordingClient()
+    agent = HealthAgent(client, "gpu-node-1", keys,
+                        driver_revision="rev-smoke", fused=False, **PROD)
+    report = on_path("agent, unfused, labelled node", agent.run_once,
+                     battery_kernels)
+    require(report.healthy, f"unfused agent report: {report.to_json()}")
+    raw = client.patches[0][1][keys.health_report_annotation]
+    gated = port.NodeReportProber(keys, revision_resolver=lambda ds: "rev-smoke",
+                                  generation_floors=True)
+    labelled = LabelledNode("gpu-node-1", {keys.health_report_annotation: raw},
+                            count)
+    verdict = gated.probe(Group([labelled]))
+    hbm_floor = gated._hbm_floor(Group([labelled]), labelled)
+    hbm = next(c for c in report.checks if c.name == "hbm_bandwidth")
+    measured = (f"{hbm.metrics['gbps']:.1f} GB/s" if "gbps" in hbm.metrics
+                else "not measured (timing inconclusive)")
+    print(f"[gate] labelled node ({GPU_PRODUCT_LABELS[0]}=NVIDIA-H100-80GB-"
+          f"HBM3, {GPU_COUNT_LABELS[0]}={count}), generation floors: HBM "
+          f"floor {hbm_floor:.1f} GB/s, measured {measured}; verdict "
+          f"healthy={verdict.healthy}: {verdict.detail}; on {card}",
+          flush=True)
+    require(hbm_floor == 0.5 * 3350.0, f"HBM floor {hbm_floor}")
+    require(verdict.healthy, f"labelled node rejected: {verdict.detail}")
+    one_more = LabelledNode("gpu-node-1",
+                            {keys.health_report_annotation: raw}, count + 1)
+    verdict = gated.probe(Group([one_more]))
+    print(f"[gate] the same report labelled with {count + 1} GPUs: "
+          f"healthy={verdict.healthy}: {verdict.detail}", flush=True)
+    require(not verdict.healthy and verdict.detail ==
+            f"node gpu-node-1: host enumerates {count} chips, expected "
+            f"{count + 1}", f"one GPU more: {verdict.detail}")
+
+    # The network-path artifact gate: one member, then 8 of the card,
+    # each cold (a warm-up-cache miss) and warm.
+    net_fallbacks = fused.battery_stats()["fallbacks"]
+    net_ms = {}
+    for label, where in (("1 member", [dev]), ("8 members", members)):
+        must = battery_kernels + (collective_kernels if len(where) > 1
+                                  else ())
+        for attempt in ("cold", "warm"):
+            t0 = time.perf_counter()
+            checks = on_path(f"network-path checks, {label}, {attempt}",
+                             lambda: run_network_path_checks(where), must)
+            net_ms[label, attempt] = (time.perf_counter() - t0) * 1e3
+            print(f"[network] run_network_path_checks over {label}, "
+                  f"{attempt}: {net_ms[label, attempt]:.3f} ms on {card}:")
+            all_ok(checks, f"network-path checks over {label} ({attempt})")
+            require(checks[1].metrics["battery_cache_hit"]
+                    == (attempt == "warm"), f"{label} {attempt}: cache")
+    require(fused.battery_stats()["fallbacks"] == net_fallbacks,
+            f"fused fallbacks on the network path: {fused.battery_stats()}")
+    net_battery = fused.run_fused_battery(
+        members, matmul_n=fused.NETWORK_MATMUL_N,
+        hbm_mib=fused.NETWORK_HBM_MIB,
+        allreduce_elems=fused.NETWORK_ALLREDUCE_ELEMS,
+    )
+    all_ok(net_battery, "the fused battery at the network sizes, 8 members")
+    gate = NetworkPathGateProber().probe(Group([labelled]), "network-driver")
+    print(f"[network] NetworkPathGateProber on the card's devices: "
+          f"passed={gate.passed} {gate.detail}", flush=True)
+    require(gate.passed, f"network-path gate: {gate.detail}")
+    collectives.ring_shift = member_0_keeps_its_value
+    try:
+        gate = NetworkPathGateProber(
+            runner=lambda: run_network_path_checks(members)
+        ).probe(Group([labelled]), "network-driver")
+    finally:
+        collectives.ring_shift = real_ring_shift
+    print(f"[network] the gate over 8 members, member 0 keeping its value: "
+          f"passed={gate.passed} {gate.detail}", flush=True)
+    require(not gate.passed and gate.detail ==
+            "ici_link_state: link 7->0 delivered 0.0, expected 7.0",
+            f"network-path gate with a ring fault: {gate.detail}")
+
+    # D6: a 2-process gloo world over a loopback store, each process's
+    # one-hot on the card; then ring-c expected as well, with a live
+    # listener as the DCN peer.  NCCL refuses two ranks on one GPU, so the
+    # cross-process NCCL all-reduce cannot run on a one-card machine.
+    torch.cuda.empty_cache()
+    listener = socket.socket()
+    listener.bind(("127.0.0.1", 0))
+    listener.listen(8)
+    peer = f"127.0.0.1:{listener.getsockname()[1]}"
+    master_port = free_port()
+    children = []
+    try:
+        for rank, group_name in enumerate(DCN_GROUPS):
+            env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(master_port), RANK=str(rank),
+                       WORLD_SIZE=str(len(DCN_GROUPS)))
+            children.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), DCN_CHILD,
+                 group_name, peer],
+                env=env, cwd=HERE, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True,
+            ))
+        outs = []
+        for child in children:
+            out, err = child.communicate(timeout=DCN_CHILD_TIMEOUT_S)
+            require(child.returncode == 0,
+                    f"DCN child failed ({child.returncode}):\n{out}\n"
+                    f"{err[-4000:]}")
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        listener.close()
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.communicate()
+    for rank, res in enumerate(outs):
+        print(f"[dcn] rank {rank} ({DCN_GROUPS[rank]}), 2-process gloo world, "
+              f"one-hot on {res['tensor_devices']}: {res['pass']['detail']} "
+              f"in {res['pass']['latency_ms']:.3f} ms; ring-c expected: "
+              f"reachability {res['reach']['detail']}; collective "
+              f"{res['ring_c']['detail']} in "
+              f"{res['ring_c']['latency_ms']:.3f} ms; {DCN_WARM_CALLS} warm "
+              f"calls after a barrier: best {res['warm_ms'][0]:.3f} ms, "
+              f"median {res['warm_ms'][DCN_WARM_CALLS // 2]:.3f} ms; on "
+              f"{card}", flush=True)
+        require(res["tensor_devices"] == ["cuda:0", "cuda:0"],
+                f"the one-hot was not on the card: {res['tensor_devices']}")
+        require(res["pass"]["ok"] and res["pass"]["detail"] ==
+                "cross-slice psum completed; contributions: ring-a=1 "
+                "ring-b=1", f"rank {rank}: {res['pass']}")
+        require(res["reach"]["ok"], f"rank {rank}: {res['reach']}")
+        require(not res["ring_c"]["ok"] and res["ring_c"]["detail"] ==
+                "DCN collective missing contribution(s) from: ring-c; "
+                "cross-slice psum completed; contributions: ring-a=1 "
+                "ring-b=1 ring-c=0", f"rank {rank}: {res['ring_c']}")
+    # A one-rank NCCL world on the card: the probe fails closed, and
+    # NCCL's own all-reduce of a one-hot there is the identity.
+    import torch.distributed as dist
+
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+        world_size=1, timeout=timedelta(seconds=120),
+    )
+    try:
+        one = dcn_collective_probe([dev], "ring-a", ["ring-a", "ring-b"])
+        onehot = torch.tensor([0.0, 1.0], device=dev)
+        dist.all_reduce(onehot)
+        nccl_sum = onehot.tolist()
+    finally:
+        dist.destroy_process_group()
+    print(f"[dcn] one-rank NCCL world on the card: ok={one.ok} {one.detail}; "
+          f"NCCL's all-reduce of [0, 1] there gives {nccl_sum}; the "
+          f"cross-process NCCL all-reduce stays unverified on a one-card "
+          f"machine (NCCL refuses two ranks on one GPU)", flush=True)
+    require(not one.ok and "world never formed" in one.detail,
+            f"one-rank NCCL world: {one.detail}")
+    require(nccl_sum == [0.0, 1.0], f"NCCL all-reduce of one rank: {nccl_sum}")
+
     print("[launches] main path total: "
           + ", ".join(f"{k} {n}" for k, n in launches.items()), flush=True)
 
-    # -- 11. kernel line, card, result --------------------------------------
+    # -- 12. kernel line, card, result --------------------------------------
     source = {
         "stream_increment_":
             "k8s_operator_libs_tpu_torch/kernels/csrc/battery_kernels.cu",
@@ -1386,4 +1658,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == DCN_CHILD:
+        sys.exit(dcn_child(sys.argv[2], sys.argv[3]))
     sys.exit(main())

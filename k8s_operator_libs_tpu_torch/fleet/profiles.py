@@ -36,8 +36,8 @@ class GenerationProfile:
     chip: ChipSpec
     # GPUs of the standard host shape (an HGX board).
     chips_per_host: int
-    # Per-GPU interconnect bandwidth the fabric should sustain, GB/s one
-    # way (NVLink 4).
+    # Per-GPU bandwidth of the host-wide collective's fabric, GB/s one way
+    # (NVLink 4 on an HGX board, PCIe Gen5 between PCIe cards).
     ici_gbps: float
     # Approximate board power per GPU, watts (efficiency weight).
     watts_per_chip: float
@@ -74,21 +74,20 @@ class GenerationProfile:
         return ICI_FLOOR_FRACTION * self.ici_gbps
 
 
-# One profile per H100 row of hw.py: 8 GPUs per HGX host, NVLink 4 at
-# 450 GB/s each way per GPU, 700 W board power (relative weight only).
+# One profile per H100 row of hw.py: 8 GPUs per host, 700 W board power
+# (relative weight only).  The host-wide collective's bandwidth per GPU,
+# one way, from NVIDIA's H100 data sheet: the SXM part on an HGX board
+# reaches every other GPU over NVLink 4 at 900 GB/s both ways (450 one
+# way); the PCIe and NVL cards reach the host's other GPUs over PCIe Gen5
+# x16 at 128 GB/s both ways (64 one way), their NVLink bridges joining
+# pairs only.
+_H100_HOST_GBPS = (("h100 pcie", 64.0), ("h100 sxm", 450.0), ("h100 nvl", 64.0))
 _BUILTIN_PROFILES: tuple[GenerationProfile, ...] = tuple(
     GenerationProfile(
-        name=spec.name, chip=spec, chips_per_host=8, ici_gbps=450.0,
-        watts_per_chip=700.0, order=order,
+        name=chip_spec(kind).name, chip=chip_spec(kind), chips_per_host=8,
+        ici_gbps=gbps, watts_per_chip=700.0, order=order,
     )
-    for order, spec in enumerate(
-        (
-            chip_spec("h100 pcie"),
-            chip_spec("h100 sxm"),
-            chip_spec("h100 nvl"),
-        ),
-        start=1,
-    )
+    for order, (kind, gbps) in enumerate(_H100_HOST_GBPS, start=1)
 )
 
 _LOCK = threading.Lock()

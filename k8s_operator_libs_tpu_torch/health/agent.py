@@ -4,9 +4,10 @@ Counterpart of ``k8s_operator_libs_tpu.health.agent`` for one GPU host:
 each cycle it runs the battery on the host's CUDA devices and publishes
 the resulting :class:`~.report.HealthReport` as a node annotation, where
 the controller-side ``NodeReportProber`` (either package's) reads it.
-One process drives every GPU of the host, its collectives included;
-multi-host coordination (``maybe_initialize_distributed``) comes with
-the cross-host collectives.
+One process drives every GPU of the host, its collectives included.
+Across hosts the agents form one ``torch.distributed`` world from
+torchrun-style env (:func:`maybe_initialize_distributed`), in which the
+battery's ``dcn_collective`` check all-reduces once a cycle.
 
 Run in the validation DaemonSet as
 ``python -m k8s_operator_libs_tpu_torch.health.agent``.
@@ -19,6 +20,7 @@ import os
 import ssl
 import time
 import urllib.request
+from datetime import timedelta
 from typing import Optional, Sequence
 
 import torch
@@ -36,6 +38,42 @@ NODE_NAME_ENV = "NODE_NAME"
 # the DaemonSet template (so it changes exactly when the driver does).
 DRIVER_REVISION_ENV = "DRIVER_REVISION"
 SERVICE_ACCOUNT_DIR = "/var/run/secrets/kubernetes.io/serviceaccount"
+# How long a collective of the cross-host world waits for a peer that
+# never enters it before it raises and fails its check.
+DISTRIBUTED_TIMEOUT_S = 120.0
+
+
+def maybe_initialize_distributed(
+    backend: Optional[str] = None, init_method: str = "env://"
+) -> bool:
+    """Join the cross-host ``torch.distributed`` world when the env names
+    one: ``WORLD_SIZE`` > 1 and ``RANK``, with ``MASTER_ADDR`` and
+    ``MASTER_PORT`` for the default ``env://`` store (as torchrun sets
+    them; a ``file://`` ``init_method`` needs no address).
+
+    The backend is NCCL when CUDA is present and ``backend`` is None,
+    else gloo, or the one named.  The process group's timeout is finite,
+    so a peer that never enters a collective makes it raise under gloo,
+    and under NCCL lets the watchdog act (by default it ends the
+    process); either way the gate sees a failed or stale report instead
+    of a wedged agent.  A second call is a
+    no-op.  Returns True when the world spans more than one process."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        world = int(os.environ.get("WORLD_SIZE", "1") or "1")
+        if world < 2:
+            return False
+        if backend is None:
+            backend = "nccl" if torch.cuda.is_available() else "gloo"
+        dist.init_process_group(
+            backend,
+            init_method=init_method,
+            rank=int(os.environ["RANK"]),
+            world_size=world,
+            timeout=timedelta(seconds=DISTRIBUTED_TIMEOUT_S),
+        )
+    return dist.get_world_size() > 1
 
 
 class HealthAgent:
@@ -58,6 +96,7 @@ class HealthAgent:
         deep: bool = False,
         max_iters: Optional[int] = None,
         dcn_peers: Optional[Sequence[str]] = None,
+        dcn_group: str = "",
         dcn_expected_groups: Optional[Sequence[str]] = None,
         fused: Optional[bool] = None,
     ) -> None:
@@ -74,6 +113,9 @@ class HealthAgent:
         # Sustained-measurement iteration cap; None = the probes' default.
         self.max_iters = max_iters
         self.dcn_peers = list(dcn_peers) if dcn_peers else None
+        # This host's DCN group and the groups expected in the world:
+        # with both, the battery ends in the dcn_collective all-reduce.
+        self.dcn_group = dcn_group
         self.dcn_expected_groups = (
             list(dcn_expected_groups) if dcn_expected_groups else None
         )
@@ -88,6 +130,7 @@ class HealthAgent:
             allreduce_elems=self.allreduce_elems,
             deep=self.deep,
             dcn_peers=self.dcn_peers,
+            dcn_group=self.dcn_group,
             dcn_expected_groups=self.dcn_expected_groups,
             fused=self.fused,
             **kwargs,
@@ -193,12 +236,17 @@ def main() -> None:
     node_name = os.environ.get(NODE_NAME_ENV, "")
     if not node_name:
         raise SystemExit(f"{NODE_NAME_ENV} is required")
+    # The cross-host world carries only dcn_collective: an H100 node is
+    # one host whose GPUs this process drives, so its reports stay
+    # slice_wide=False (the agent's default) whatever the world's size.
+    maybe_initialize_distributed()
     agent = HealthAgent(
         client=InClusterNodeAnnotator(),
         node_name=node_name,
         driver_revision=os.environ.get(DRIVER_REVISION_ENV, ""),
         deep=os.environ.get("HEALTH_DEEP_PROBE", "") == "1",
         dcn_peers=csv_env("HEALTH_DCN_PEERS"),
+        dcn_group=os.environ.get("HEALTH_DCN_GROUP", ""),
         dcn_expected_groups=csv_env("HEALTH_DCN_GROUPS"),
     )
     interval = float(os.environ.get("HEALTH_PROBE_INTERVAL_S", "30"))

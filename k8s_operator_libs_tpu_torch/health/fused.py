@@ -23,6 +23,9 @@ builds or loads the kernel library and runs the body once at the key's
 shapes (warming cuBLAS and the caching allocator), and reports that time
 as ``battery_compile_ms``; a hit reports 0.  The per-check decomposition
 and detail strings are the JAX package's, so verdicts read the same.
+
+:func:`run_network_path_checks` is the network-path artifact gate's
+battery: the cross-host world's size and the ring at the smallest sizes.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import torch
 from k8s_operator_libs_tpu_torch.health.probes import (
     CheckResult,
     device_kind,
+    distributed_world_size,
     exact_bf16_matmul,
     resolve_floors,
 )
@@ -383,4 +387,84 @@ def run_fused_battery(
                     {"devices": float(n_dev)},
                 )
             )
+    return results
+
+
+# Problem sizes of the network-path battery: the smallest fused battery
+# that still carries a value over every link of the host's ring.  It runs
+# once per gated artifact step inside the drain window, so it must cost
+# milliseconds warm; its sizes give it a warm-up-cache key of its own.
+NETWORK_MATMUL_N = 128
+NETWORK_HBM_MIB = 1
+NETWORK_ALLREDUCE_ELEMS = 8
+
+
+def run_network_path_checks(
+    devices: Sequence[torch.device],
+    expected_processes: Optional[int] = None,
+) -> list[CheckResult]:
+    """Network-path checks gating the networking artifact's step:
+    ``dcn_reachability`` and ``ici_link_state``.
+
+    - **dcn_reachability**: every expected process (host) is in the
+      ``torch.distributed`` world (1 when there is none); a host that
+      cannot be enumerated cannot be reached.  No device work.
+    - **ici_link_state**: the fused battery's ring at network-probe
+      sizes: every link of the host's ring carries one value and the
+      receiver checks it exactly.
+
+    Raises on infrastructure faults; the caller treats that as a gate
+    not passed, never as a pass."""
+    devs = list(devices)
+    results: list[CheckResult] = []
+
+    t0 = time.perf_counter()
+    visible = distributed_world_size()
+    want = expected_processes if expected_processes else visible
+    dcn_ms = (time.perf_counter() - t0) * 1e3
+    metrics = {"expected": float(want), "visible": float(visible)}
+    if visible >= want:
+        results.append(
+            CheckResult(
+                "dcn_reachability", True, dcn_ms,
+                f"all {want} expected process(es) visible over DCN "
+                f"({visible} enumerated)",
+                metrics,
+            )
+        )
+    else:
+        results.append(
+            CheckResult(
+                "dcn_reachability", False, dcn_ms,
+                f"only {visible} of {want} expected process(es) visible "
+                "over DCN",
+                metrics,
+            )
+        )
+
+    ring = [
+        r
+        for r in run_fused_battery(
+            devs,
+            matmul_n=NETWORK_MATMUL_N,
+            hbm_mib=NETWORK_HBM_MIB,
+            allreduce_elems=NETWORK_ALLREDUCE_ELEMS,
+        )
+        if r.name == "ici_ring"
+    ]
+    if ring:
+        src = ring[0]
+        results.append(
+            CheckResult(
+                "ici_link_state", src.ok, src.latency_ms, src.detail,
+                dict(src.metrics),
+            )
+        )
+    else:  # the battery always rings here; stay fail-closed regardless
+        results.append(
+            CheckResult(
+                "ici_link_state", False, 0.0,
+                "fused battery returned no ring verdict", {},
+            )
+        )
     return results

@@ -24,7 +24,10 @@ messages, so reports from either package read the same:
 - **ici_ring_attention** (the deep probe): ring attention over every
   device (:mod:`~k8s_operator_libs_tpu_torch.workloads.ring_attention`,
   block kernel K3) against single-device full attention; vacuous on one
-  device.
+  device;
+- **dcn_reachability / dcn_collective**: TCP connects to peer hosts, and
+  a ``torch.distributed`` all-reduce across the hosts' processes that
+  must carry every expected DCN group's contribution.
 
 Devices are explicit ``torch.device``s.  With ``devices=None`` the
 entry points enumerate the CUDA devices and never fall back to the CPU;
@@ -714,13 +717,100 @@ def dcn_reachability_probe(
     )
 
 
-def dcn_collective_probe() -> CheckResult:
-    """The cross-host all-reduce gate: fail-closed until the cross-host
-    collectives (``torch.distributed`` across hosts) are ported."""
+def distributed_world_size() -> int:
+    """Processes in the ``torch.distributed`` world: the default process
+    group's size once it is initialized, else 1."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def dcn_collective_probe(
+    devices: Optional[Sequence[torch.device]] = None,
+    dcn_group: str = "",
+    expected_groups: Optional[Sequence[str]] = None,
+) -> CheckResult:
+    """The cross-host all-reduce gate, stronger than
+    :func:`dcn_reachability_probe`: a port can answer while the collective
+    transport is broken, and only a completed all-reduce that carries
+    every peer group's contribution proves a multi-node job can step.
+
+    Each process (one per host, driving ``devices``) builds an fp32
+    one-hot over the sorted expected DCN group names at its own group's
+    index, times ``len(devices)``, on ``devices[0]``, and all-reduces it
+    (SUM) over the default ``torch.distributed`` world (NCCL on the card,
+    which needs the CUDA tensor; gloo in tests).  Entry g then counts the
+    devices whose host claims group g, as the JAX package's psum over the
+    global device rows does.  The verdict: every expected group
+    contributed.  There is no hand kernel: the traffic crosses the
+    network, where the JAX package leaves it to XLA's collective.  Every
+    process must call this once, at the same point of its battery; a
+    peer that never enters it makes the collective raise once the
+    process group's timeout passes, which fails the check."""
+    try:
+        devs = list(devices) if devices is not None else cuda_devices()
+    except RuntimeError as e:
+        return CheckResult(
+            "dcn_collective", False, 0.0, f"device enumeration failed: {e}"
+        )
+    if not dcn_group:
+        return CheckResult(
+            "dcn_collective", False, 0.0,
+            "no DCN group configured for this host (HEALTH_DCN_GROUP)",
+        )
+    groups = sorted(set(expected_groups or ()) | {dcn_group})
+    if len(groups) < 2:
+        return CheckResult(
+            "dcn_collective", False, 0.0,
+            f"need >=2 expected DCN groups, have {groups} — a single-group "
+            "collective proves nothing about the DCN",
+        )
+    n_processes = distributed_world_size()
+    if n_processes < 2:
+        return CheckResult(
+            "dcn_collective", False, 0.0,
+            f"distributed world spans {n_processes} process(es); the "
+            "cross-slice world never formed",
+            metrics={"processes": float(n_processes)},
+        )
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    try:
+        onehot = torch.zeros(len(groups), dtype=torch.float32,
+                             device=devs[0])
+        onehot[groups.index(dcn_group)] = float(len(devs))
+        dist.all_reduce(onehot, op=dist.ReduceOp.SUM)
+        counts = onehot.tolist()
+    except Exception as e:  # noqa: BLE001 — a broken DCN raises mid-collective
+        return CheckResult(
+            "dcn_collective", False,
+            (time.perf_counter() - t0) * 1e3,
+            f"cross-slice psum failed: {e}",
+        )
+    elapsed_ms = (time.perf_counter() - t0) * 1e3
+    contributions = {g: int(c) for g, c in zip(groups, counts)}
+    missing = [g for g, c in contributions.items() if c < 1]
+    detail = "cross-slice psum completed; contributions: " + " ".join(
+        f"{g}={c}" for g, c in contributions.items()
+    )
+    if missing:
+        detail = (
+            "DCN collective missing contribution(s) from: "
+            + ", ".join(missing) + "; " + detail
+        )
     return CheckResult(
-        "dcn_collective", False, 0.0,
-        "cross-host all-reduce: not ported yet (torch.distributed across "
-        "hosts); failing closed",
+        "dcn_collective",
+        not missing,
+        elapsed_ms,
+        detail,
+        metrics={
+            "groups": float(len(groups)),
+            "participating": float(len(groups) - len(missing)),
+            "processes": float(n_processes),
+        },
     )
 
 
@@ -742,6 +832,7 @@ def run_host_probe(
     min_time_s: float = DEFAULT_MIN_TIME_S,
     max_iters: int = _MAX_SUSTAINED_ITERS,
     dcn_peers: Optional[Sequence[str]] = None,
+    dcn_group: str = "",
     dcn_expected_groups: Optional[Sequence[str]] = None,
     on_check=None,
     fused: Optional[bool] = None,
@@ -753,7 +844,10 @@ def run_host_probe(
     ramp per device), fail fast on
     enumeration, then the fused battery (``health.fused``) with the
     unfused probes as fallback, stamping the same ``battery_*`` parity
-    keys either way; ``on_check`` is called as each check completes.
+    keys either way, then the DCN checks; ``on_check`` is called as each
+    check completes.  With ``dcn_expected_groups`` the battery ends in the
+    cross-host all-reduce, the only collective that crosses processes, so
+    every host enters it exactly once a call whatever its timings.
     ``devices=None`` means every CUDA device; without one the result is a
     single failing ``device_enumeration`` check."""
     results: list[CheckResult] = []
@@ -856,5 +950,10 @@ def run_host_probe(
     if dcn_peers:
         add(dcn_reachability_probe(dcn_peers))
     if dcn_expected_groups:
-        add(dcn_collective_probe())
+        add(
+            dcn_collective_probe(
+                devs, dcn_group=dcn_group,
+                expected_groups=dcn_expected_groups,
+            )
+        )
     return results

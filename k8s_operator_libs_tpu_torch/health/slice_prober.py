@@ -10,10 +10,17 @@ classes implement the ``SliceProber`` protocol of the upgrade engine's
   each node's agent publishes into one group verdict, with the JAX
   package's rejection strings.
 
-Groups are duck-typed: ``.id``, ``.nodes`` (each with ``.name`` and
-``.annotations``), ``.members`` (each with ``.driver_daemon_set``),
-``.slice_info`` (None, or with ``.host_chips()``, ``.chips``,
-``.accelerator`` and ``.dcn_group``) and ``.size()``.
+Groups are duck-typed: ``.id``, ``.nodes`` (each with ``.name``,
+``.annotations`` and, optionally, ``.labels``), ``.members`` (each with
+``.driver_daemon_set``), ``.slice_info`` (None, or with ``.host_chips()``,
+``.chips``, ``.accelerator`` and ``.dcn_group``) and ``.size()``.
+
+The engine builds ``slice_info`` only from TPU labels, so every GPU node
+reaches the gate as a singleton group without one.  For such a group the
+accelerator and the device count come from each node's own labels
+(:data:`GPU_PRODUCT_LABELS`, :data:`GPU_COUNT_LABELS`), and the count
+check and the generation's floors apply per node; a node without them
+is unknown and nothing is enforced, as for an unknown accelerator.
 """
 
 from __future__ import annotations
@@ -38,6 +45,23 @@ logger = get_logger(__name__)
 # A report older than this can't validate: the driver pod restarted more
 # recently than the probe ran, or the agent is wedged.
 DEFAULT_MAX_REPORT_AGE_S = 600.0
+
+# Node labels naming a GPU host's accelerator and its device count, GPU
+# Feature Discovery's first, then GKE's.
+GPU_PRODUCT_LABELS = (
+    "nvidia.com/gpu.product",
+    "cloud.google.com/gke-accelerator",
+)
+GPU_COUNT_LABELS = (
+    "nvidia.com/gpu.count",
+    "cloud.google.com/gke-accelerator-count",
+)
+
+
+def _node_label(node, names: Sequence[str]) -> str:
+    """The first of ``names`` set on the node, or ""."""
+    labels = getattr(node, "labels", None) or {}
+    return next((labels[n] for n in names if labels.get(n)), "")
 
 
 class LocalDeviceProber:
@@ -90,12 +114,13 @@ class LocalDeviceProber:
         )
 
 
-def expected_chips_per_host(group) -> int:
+def expected_chips_per_host(group, node=None) -> int:
     """Devices each host of this group should enumerate (0 = unknown,
-    don't enforce)."""
-    if group.slice_info is None:
-        return 0
-    return group.slice_info.host_chips()
+    don't enforce): the slice's, else ``node``'s GPU count label."""
+    if group.slice_info is not None:
+        return group.slice_info.host_chips()
+    raw = _node_label(node, GPU_COUNT_LABELS)
+    return int(raw) if raw.isdigit() else 0
 
 
 class NodeReportProber:
@@ -137,32 +162,33 @@ class NodeReportProber:
                 return self.revision_resolver(member.driver_daemon_set) or ""
         return ""
 
-    def _group_profile(self, group):
-        """The group's GenerationProfile, or None."""
-        if group.slice_info is None:
-            return None
-        return generation_profile(group.slice_info.accelerator)
+    def _group_profile(self, group, node=None):
+        """The GenerationProfile of the group's slice, else of ``node``'s
+        GPU product label, or None."""
+        if group.slice_info is not None:
+            return generation_profile(group.slice_info.accelerator)
+        return generation_profile(_node_label(node, GPU_PRODUCT_LABELS))
 
-    def _hbm_floor(self, group) -> float:
+    def _hbm_floor(self, group, node=None) -> float:
         """Effective HBM floor: explicit wins; else the policy fraction
         (or the profile's own floor under ``generation_floors``)."""
         if self.min_hbm_gbps:
             return self.min_hbm_gbps
         if not self.hbm_floor_fraction and not self.generation_floors:
             return 0.0
-        profile = self._group_profile(group)
+        profile = self._group_profile(group, node)
         if profile is None:
             return 0.0
         if self.hbm_floor_fraction:
             return profile.hbm_floor(self.hbm_floor_fraction)
         return profile.hbm_floor()
 
-    def _ici_floor(self, group) -> float:
+    def _ici_floor(self, group, node=None) -> float:
         """Effective bus-bandwidth floor: explicit wins; else the
         generation's profile floor under ``generation_floors``."""
         if self.min_ici_busbw_gbps or not self.generation_floors:
             return self.min_ici_busbw_gbps
-        profile = self._group_profile(group)
+        profile = self._group_profile(group, node)
         if profile is None:
             return 0.0
         return profile.ici_floor()
@@ -170,13 +196,14 @@ class NodeReportProber:
     def _check_report(
         self, report: HealthReport, group, required_rev: str,
         now: float, hbm_floor: float = 0.0,
-        ici_floor: Optional[float] = None,
+        ici_floor: Optional[float] = None, node=None,
     ) -> Optional[str]:
         """Return a rejection reason, or None if the report is acceptable.
 
         ``now`` is the staleness reference point (the gate's start time
         when one is recorded: a report must have been fresh when the gate
-        opened)."""
+        opened); ``node`` is the reporting node, whose labels give the
+        device count when the group has no slice."""
         if ici_floor is None:
             ici_floor = self.min_ici_busbw_gbps
         if required_rev and report.driver_revision != required_rev:
@@ -192,7 +219,7 @@ class NodeReportProber:
         failed = report.failed_checks()
         if failed:
             return "; ".join(f"{c.name}: {c.detail}" for c in failed)
-        chips = expected_chips_per_host(group)
+        chips = expected_chips_per_host(group, node)
         if report.slice_wide and group.slice_info is not None:
             want = group.slice_info.chips
             if want and report.visible_devices != want:
@@ -250,8 +277,6 @@ class NodeReportProber:
         start_key = self.keys.validation_start_time_annotation
         required_rev = self._required_revision(group)
         now = time.time()
-        hbm_floor = self._hbm_floor(group)
-        ici_floor = self._ici_floor(group)
         # Measured per-node telemetry, kept even on a failing verdict.
         telemetry: dict[str, dict[str, float]] = {}
         for node in group.nodes:
@@ -276,7 +301,9 @@ class NodeReportProber:
             raw_start = node.annotations.get(start_key, "")
             ref = min(now, float(raw_start)) if raw_start.isdigit() else now
             reason = self._check_report(
-                report, group, required_rev, ref, hbm_floor, ici_floor
+                report, group, required_rev, ref,
+                self._hbm_floor(group, node), self._ici_floor(group, node),
+                node,
             )
             if reason is not None:
                 return ProbeResult(

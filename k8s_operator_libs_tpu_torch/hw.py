@@ -5,10 +5,13 @@ place of the TPU rows.  Numbers are NVIDIA's data-sheet peaks per GPU:
 dense bf16 tensor-core TFLOPS (no sparsity), HBM bandwidth and capacity.
 
 ``device_kind`` strings come from ``torch.cuda.get_device_name()`` (e.g.
-``"NVIDIA H100 80GB HBM3"`` for the SXM part) or a GKE accelerator label
+``"NVIDIA H100 80GB HBM3"`` for the SXM part), from GPU Feature
+Discovery's ``nvidia.com/gpu.product`` node label (``"NVIDIA-H100-PCIe"``)
+or from GKE's ``cloud.google.com/gke-accelerator`` label
 (``"nvidia-h100-80gb"``).  Matching is substring-based and
-case-insensitive; unknown kinds, and ``"cpu"``, yield None so callers skip
-spec-relative checks.
+case-insensitive, with ``-`` and ``_`` read as spaces, so the three
+spellings of one part resolve alike; unknown kinds, and ``"cpu"``, yield
+None so callers skip spec-relative checks.
 """
 
 from __future__ import annotations
@@ -29,21 +32,22 @@ _H100_SXM = ChipSpec("h100-sxm", 989.0, 3350.0, 80.0)
 _H100_PCIE = ChipSpec("h100-pcie", 756.0, 2000.0, 80.0)
 _H100_NVL = ChipSpec("h100-nvl", 835.0, 3900.0, 94.0)
 
-# Substring (lowercased) -> spec.  Order matters: more specific first.
+# Substring (of the normalised kind) -> spec.  Order matters: more
+# specific first.
 _CHIP_SPECS: list[tuple[str, ChipSpec]] = [
     ("h100 nvl", _H100_NVL),
     ("h100 pcie", _H100_PCIE),
     ("h100 80gb hbm3", _H100_SXM),
     ("h100 sxm", _H100_SXM),
-    ("h100-mega-80gb", _H100_SXM),
-    ("h100-80gb", _H100_SXM),
+    ("h100 mega 80gb", _H100_SXM),
+    ("h100 80gb", _H100_SXM),
 ]
 
 
 def chip_spec(device_kind: str) -> Optional[ChipSpec]:
-    """Spec for a CUDA device name or GKE accelerator label, or None if
-    unknown."""
-    kind = (device_kind or "").lower()
+    """Spec for a CUDA device name, GPU Feature Discovery product label or
+    GKE accelerator label, or None if unknown."""
+    kind = (device_kind or "").lower().replace("-", " ").replace("_", " ")
     for needle, spec in _CHIP_SPECS:
         if needle in kind:
             return spec

@@ -17,6 +17,7 @@ apart from the timed figures of the unfused battery.
 from __future__ import annotations
 
 import inspect
+import itertools
 import re
 
 import numpy as np
@@ -89,6 +90,38 @@ def _shape(checks):
           if k in ("devices", "n", "mib", "fused", "bad_links")})
         for c in checks
     ]
+
+
+class _ScriptClock:
+    """perf_counter stand-in, as in test_torch_probes: each timed run
+    brackets its loop with two calls; this feeds the scripted elapsed
+    times, one per run, in order and over again."""
+
+    def __init__(self, elapsed_seq):
+        self.elapsed = itertools.cycle(elapsed_seq)
+        self.now = 0.0
+        self.pending = None
+
+    def __call__(self):
+        if self.pending is None:
+            self.pending = next(self.elapsed)
+            return self.now
+        self.now += self.pending
+        self.pending = None
+        return self.now
+
+
+def _one_clock(monkeypatch):
+    """Drive both packages' sustained estimators from one scripted,
+    monotonic clock.  Each reads its own wall clock otherwise, and under
+    load one side's runs can come out non-monotonic ("unstable timing")
+    while the other's do not.  Here the pilot takes 1 s and the warm run
+    4 s, then every k1-long run 1 s and every 4·k1-long run 4 s: each
+    probe makes an even number of runs, so both sides see the same
+    valid slopes and the same schedule."""
+    clock = _ScriptClock([1.0, 4.0])
+    monkeypatch.setattr(jprobes, "_perf_counter", clock)
+    monkeypatch.setattr(tprobes, "_perf_counter", clock)
 
 
 def _host(n: int, seed: int, elems: int = ELEMS) -> np.ndarray:
@@ -233,7 +266,9 @@ def test_ici_ring_probe_parity(cpu_devices, n):
 
 @pytest.mark.parametrize("fused", [True, False])
 @pytest.mark.parametrize("n", MEMBERS)
-def test_run_host_probe_parity(cpu_devices, n, fused):
+def test_run_host_probe_parity(cpu_devices, monkeypatch, n, fused):
+    if not fused:
+        _one_clock(monkeypatch)
     j = jprobes.run_host_probe(cpu_devices[:n], fused=fused, **SMALL, **FAST)
     t = tprobes.run_host_probe([CPU] * n, fused=fused, **SMALL, **FAST)
     assert _shape(t) == _shape(j)
@@ -282,6 +317,7 @@ def _persistent(fake):
 def test_dropped_traffic_fails_with_jax_details(cpu_devices, monkeypatch, n,
                                                 path):
     if path == "unfused_psum":
+        _one_clock(monkeypatch)
         monkeypatch.setattr(jax.lax, "psum", lambda x, axis_name: x)
         monkeypatch.setattr(collectives, "all_reduce", _dropped_sum)
         monkeypatch.setattr(collectives, "all_reduce_init",
@@ -314,6 +350,8 @@ def test_dropped_traffic_fails_with_jax_details(cpu_devices, monkeypatch, n,
 @pytest.mark.parametrize("fused", [True, False])
 @pytest.mark.parametrize("n", MEMBERS)
 def test_wrong_sum_fails_with_jax_details(cpu_devices, monkeypatch, n, fused):
+    if not fused:
+        _one_clock(monkeypatch)
     monkeypatch.setattr(jax.lax, "psum", lambda x, axis_name: x * 0)
     monkeypatch.setattr(collectives, "all_reduce", _zero_sum)
     monkeypatch.setattr(collectives, "all_reduce_init", _persistent(_zero_sum))

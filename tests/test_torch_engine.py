@@ -6,6 +6,10 @@ changes.  A roll gated by the port's ``LocalDeviceProber`` must complete
 and walk every node through the same distinct states as one gated by the
 JAX package's, and the two ``NodeReportProber``s must give the same
 verdict and detail for the reports the port's ``HealthAgent`` publishes.
+A GPU node reaches the gate with no slice, so the port reads its
+accelerator and device count from its labels; its verdicts are held to
+the JAX package's on the TPU analogue, a slice of the same count and
+floor.
 """
 
 from __future__ import annotations
@@ -38,7 +42,10 @@ from k8s_operator_libs_tpu_torch.health import (  # noqa: E402
     NodeReportProber as PortReportProber,
 )
 from k8s_operator_libs_tpu_torch.health import fused as tfused  # noqa: E402
+from k8s_operator_libs_tpu_torch import hw  # noqa: E402
 from k8s_operator_libs_tpu_torch.health.agent import HealthAgent  # noqa: E402
+from k8s_operator_libs_tpu_torch.health.probes import CheckResult  # noqa: E402
+from k8s_operator_libs_tpu_torch.health.report import HealthReport  # noqa: E402
 from k8s_operator_libs_tpu_torch.kernels import collectives  # noqa: E402
 from k8s_operator_libs_tpu_torch.upgrade import UpgradeKeys as PortKeys  # noqa: E402
 from tests.fixtures import (  # noqa: E402
@@ -213,3 +220,126 @@ def test_report_probers_agree_on_agent_reports(case, healthy, needle):
     assert port.telemetry == ref.telemetry
     assert port.healthy is healthy
     assert needle in port.detail
+
+
+# --- GPU nodes: accelerator and device count from the node's labels --------
+
+GFD = ("nvidia.com/gpu.product", "nvidia.com/gpu.count")
+GKE = ("cloud.google.com/gke-accelerator",
+       "cloud.google.com/gke-accelerator-count")
+
+
+def _gpu_node(labels, visible, hbm_gbps=2900.0, busbw_gbps=180.0):
+    """A node whose agent's report passed every check, with ``visible``
+    GPUs, its HBM stream at ``hbm_gbps`` and its all-reduce at
+    ``busbw_gbps``."""
+    checks = [
+        CheckResult("device_enumeration", True, 0.1,
+                    f"{visible} device(s): NVIDIA H100 80GB HBM3",
+                    {"devices": float(visible)}),
+        CheckResult("hbm_bandwidth", True, 5.0,
+                    f"{hbm_gbps:.1f} GB/s sustained over 1024 MiB x 64 "
+                    "passes", {"gbps": hbm_gbps}),
+        CheckResult("ici_allreduce", True, 0.05,
+                    f"psum over {visible} devices exact",
+                    {"devices": float(visible), "busbw_gbps": busbw_gbps}),
+    ]
+    report = HealthReport("gpu-0", "", checks, time.time(), visible)
+    return make_node("gpu-0", labels,
+                     {KEYS.health_report_annotation: report.to_json()})
+
+
+def _labels(scheme, product, count):
+    return {scheme[0]: product, scheme[1]: str(count)}
+
+
+def _tpu_analogue(node, chips):
+    """The same node in a TPU slice whose hosts hold ``chips`` chips."""
+    return _group([node], SliceInfo(
+        slice_id="pool-t", accelerator="tpu-v5p-slice", topology="2x2x2",
+        expected_hosts=1, chips_per_host=chips,
+    ))
+
+
+@pytest.mark.parametrize(
+    "scheme, product, visible, hbm, busbw, port_kw, ref_kw, needle",
+    [
+        # A GPU short of the label's count.
+        (GFD, "NVIDIA-H100-80GB-HBM3", 7, 2900.0, 180.0, {}, {},
+         "host enumerates 7 chips, expected 8"),
+        (GKE, "nvidia-h100-80gb", 7, 2900.0, 180.0, {}, {},
+         "host enumerates 7 chips, expected 8"),
+        # HBM under the SXM profile's floor (half of 3350 GB/s).
+        (GFD, "NVIDIA-H100-80GB-HBM3", 8, 800.0, 180.0,
+         {"generation_floors": True}, {"min_hbm_gbps": 1675.0},
+         "HBM bandwidth 800.0 GB/s below floor 1675.0"),
+        (GKE, "nvidia-h100-mega-80gb", 8, 800.0, 180.0,
+         {"hbm_floor_fraction": 0.5}, {"min_hbm_gbps": 1675.0},
+         "HBM bandwidth 800.0 GB/s below floor 1675.0"),
+        # Bus bandwidth under the SXM profile's floor (a quarter of 450).
+        (GFD, "NVIDIA-H100-80GB-HBM3", 8, 2900.0, 20.0,
+         {"generation_floors": True}, {"min_ici_busbw_gbps": 112.5},
+         "ICI bus bandwidth 20.0 GB/s below floor 112.5"),
+        (GFD, "NVIDIA-H100-80GB-HBM3", 8, 2900.0, 180.0,
+         {"generation_floors": True},
+         {"min_hbm_gbps": 1675.0, "min_ici_busbw_gbps": 112.5},
+         "all 1 host report(s) healthy"),
+    ],
+)
+def test_gpu_labels_gate_like_a_tpu_slice(scheme, product, visible, hbm,
+                                          busbw, port_kw, ref_kw, needle):
+    node = _gpu_node(_labels(scheme, product, 8), visible, hbm, busbw)
+    port = PortReportProber(PortKeys(), **port_kw).probe(_group([node]))
+    ref = JaxReportProber(KEYS, **ref_kw).probe(_tpu_analogue(node, 8))
+    assert (port.healthy, port.detail) == (ref.healthy, ref.detail)
+    assert needle in port.detail
+    assert port.healthy == needle.startswith("all ")
+
+
+def test_pcie_host_passes_its_profile_floor():
+    """A PCIe card reaches the host's other GPUs over PCIe Gen5 (64 GB/s
+    one way), so 20 GB/s of bus bandwidth clears its 16 GB/s floor; the
+    same reading on an SXM board does not clear 112.5."""
+    pcie = _gpu_node(_labels(GFD, "NVIDIA-H100-PCIe", 8), 8, 1500.0, 20.0)
+    verdict = PortReportProber(PortKeys(), generation_floors=True).probe(
+        _group([pcie])
+    )
+    assert verdict.healthy, verdict.detail
+    sxm = _gpu_node(_labels(GFD, "NVIDIA-H100-80GB-HBM3", 8), 8, 2900.0,
+                    20.0)
+    verdict = PortReportProber(PortKeys(), generation_floors=True).probe(
+        _group([sxm])
+    )
+    assert not verdict.healthy
+    assert verdict.detail.endswith("below floor 112.5")
+
+
+@pytest.mark.parametrize("labels", [{}, {"nvidia.com/gpu.count": "x"}])
+def test_unlabelled_gpu_node_is_not_enforced(labels):
+    """Without the labels the accelerator is unknown: no count and no
+    floor, as the JAX package treats an unknown accelerator."""
+    node = _gpu_node(labels, 7, 800.0, 20.0)
+    port = PortReportProber(PortKeys(), generation_floors=True).probe(
+        _group([node])
+    )
+    ref = JaxReportProber(KEYS, generation_floors=True).probe(_group([node]))
+    assert (port.healthy, port.detail) == (ref.healthy, ref.detail)
+    assert port.healthy
+
+
+@pytest.mark.parametrize(
+    "kind, name",
+    [
+        ("NVIDIA-H100-PCIe", "h100-pcie"),
+        ("NVIDIA-H100-NVL", "h100-nvl"),
+        ("NVIDIA-H100-80GB-HBM3", "h100-sxm"),
+        ("NVIDIA H100 PCIe", "h100-pcie"),
+        ("NVIDIA H100 NVL", "h100-nvl"),
+        ("NVIDIA H100 80GB HBM3", "h100-sxm"),
+        ("nvidia-h100-80gb", "h100-sxm"),
+        ("nvidia-h100-mega-80gb", "h100-sxm"),
+        ("nvidia_h100_nvl", "h100-nvl"),
+    ],
+)
+def test_chip_spec_reads_gfd_and_gke_spellings(kind, name):
+    assert hw.chip_spec(kind).name == name

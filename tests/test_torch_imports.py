@@ -52,6 +52,12 @@ def test_importing_every_port_module_loads_no_jax():
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]"
     assert len(modules) >= 15  # every module of the slice was imported
+    assert {
+        "k8s_operator_libs_tpu_torch.artifacts",
+        "k8s_operator_libs_tpu_torch.artifacts.gates",
+        "k8s_operator_libs_tpu_torch.health.agent",
+        "k8s_operator_libs_tpu_torch.health.fused",
+    } <= set(modules)
 
 
 @pytest.mark.parametrize(
