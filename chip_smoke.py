@@ -16,9 +16,15 @@ Phases:
    NaN-seeded inputs; K3 within stated tolerances at every shape the
    ring paths give it (shards before, on and after the diagonal, and
    each path's full reference), the canary's attention shape, odd
-   shapes, non-causal and wholly masked blocks; the ring on the card
-   against the plain version's full attention; CUDA-event times beside the
-   bound and one library call; then the fused battery at a small size on
+   shapes, non-causal and wholly masked blocks, and K3's fused ring step
+   (``block_attention_merge_``) there too, from the ring's first-step
+   accumulator and from a random running one, within the same limits of
+   its plain version and with its merge bit for bit torch's ``_merge``
+   on the kernel's own block outputs; the ring on the card against the
+   plain version's full attention, one fused launch a step; CUDA-event
+   and profiler times beside the bound and one library call (K3 and the
+   fused step at the ring's two shards and the canary's shape); then
+   the fused battery at a small size on
    the card against the CPU; K4 bit for bit at 2, 3, 4, 5 and 8 sources
    of 2^20 and 2^22 elements, at a ragged length with unaligned offsets
    and with a NaN in one source, and the all-reduce (also its
@@ -48,9 +54,12 @@ Phases:
    buffers in turn: two graphs a plan, repointed past two), and the bus
    bandwidth that time allows a board;
 8. ring attention on the card: the deep probe over an 8-member ring on
-   the one card (S 1024), the soak at S 4096, the elastic ring (a round,
-   exclude, round, rejoin, round) and the battery with ``deep=True`` on
-   one device, where the deep check is vacuous as in the JAX package;
+   the one card (S 1024), the soak at S 4096, each with one fused launch
+   a ring step, the same two rings timed with the fused step and with the
+   old one (K3, then the merge in torch ops) in turns, the elastic ring
+   (a round, exclude, round, rejoin, round) and the battery with
+   ``deep=True`` on one device, where the deep check is vacuous as in
+   the JAX package;
 9. the canary at the bench's width (103 M parameters) for 3 warm-up and
    20 timed steps, its throughput and sustained device step time; and
    the small canary on the card against the CPU with the same weights
@@ -128,6 +137,8 @@ K3_M_ATOL = 1e-4
 K3_L_RTOL = 1e-4
 K3_NUM_ATOL = 5e-2
 RING_ATOL = 5e-2
+# Rounds of each ring timed with the fused step and with the old one.
+RING_TIMED_ROUNDS = 10
 BENCH_CANARY = dict(vocab=1024, d_model=1024, n_heads=16, n_layers=8,
                     d_ff=4096, seq_len=512, batch=32)
 TINY_CANARY = dict(vocab=64, d_model=64, n_heads=4, n_layers=2, d_ff=128,
@@ -414,14 +425,12 @@ def main() -> int:
         ("non-causal", (2, 128, 192, 4, 64), 0, 0, False),
         ("wholly masked", (1, 64, 64, 2, 64), 0, 1000, True),
     ]
-    for seed, (label, (b, sq, sk, h, d), qo, ko, causal) in enumerate(
-        k3_cases
-    ):
-        q, k, v = k3_inputs(b, sq, sk, h, d, seed)
-        num, m, l = K.block_attention(q, k, v, qo, ko, causal)
-        pnum, pm, pl = K.block_attention_plain(q, k, v, qo, ko, causal)
+    def k3_against_plain(label, got, plain):
+        """K3's three limits on (num, m, l) against the plain version's."""
+        num, m, l = got
+        pnum, pm, pl = plain
         torch.cuda.synchronize()
-        for t in (num, m, l):
+        for t in got:
             require(bool(torch.isfinite(t).all()), f"K3 {label}: not finite")
         e_num = float((num - pnum).abs().max())
         e_m = float((m - pm).abs().max())
@@ -430,20 +439,66 @@ def main() -> int:
         max_err["block_attention"] = max(
             max_err["block_attention"], e_num, e_m, e_l
         )
-        print(f"[K3] {label} {(b, sq, sk, h, d)} offsets {qo}/{ko} "
-              f"causal={causal}: max|num-plain| {e_num:.3e}, "
-              f"max|m-plain| {e_m:.3e}, max|l-plain| {e_l:.3e} "
-              f"(relative {e_l_rel:.3e})", flush=True)
         require(e_num <= K3_NUM_ATOL, f"K3 {label}: num off by {e_num}")
         require(e_m <= K3_M_ATOL, f"K3 {label}: m off by {e_m}")
         require(e_l_rel <= K3_L_RTOL, f"K3 {label}: l off by {e_l_rel}")
+        return (f"max|num-plain| {e_num:.3e}, max|m-plain| {e_m:.3e}, "
+                f"max|l-plain| {e_l:.3e} (relative {e_l_rel:.3e})")
+
+    def k3_accumulators(b, sq, h, d, seed):
+        """The ring's first-step accumulator (num 0, m NEG_INF, l 0) and a
+        random running one (l > 0, m about a row max)."""
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        first = (torch.zeros((b, sq, h, d), device=dev),
+                 torch.full((b, sq, h), R.NEG_INF, device=dev),
+                 torch.zeros((b, sq, h), device=dev))
+        running = (
+            torch.randn((b, sq, h, d), device=dev, generator=g),
+            torch.randn((b, sq, h), device=dev, generator=g) + 1.0,
+            torch.rand((b, sq, h), device=dev, generator=g) * 20.0 + 0.5,
+        )
+        return (("first-step", first), ("running", running))
+
+    for seed, (label, (b, sq, sk, h, d), qo, ko, causal) in enumerate(
+        k3_cases
+    ):
+        q, k, v = k3_inputs(b, sq, sk, h, d, seed)
+        block = K.block_attention(q, k, v, qo, ko, causal)
+        errs = k3_against_plain(
+            label, block, K.block_attention_plain(q, k, v, qo, ko, causal)
+        )
+        print(f"[K3] {label} {(b, sq, sk, h, d)} offsets {qo}/{ko} "
+              f"causal={causal}: {errs}", flush=True)
         if label == "wholly masked":
-            require(not (num.any() or m.any() or l.any()),
+            require(not any(t.any() for t in block),
                     "K3 wholly masked: want m 0, l 0, num 0 exactly")
-        del q, k, v, num, m, l, pnum, pm, pl
-    print(f"[kernels] K3 matches its plain version within num "
-          f"{K3_NUM_ATOL}, m {K3_M_ATOL}, l {K3_L_RTOL} relative "
-          f"({len(k3_cases)} cases)", flush=True)
+        # The fused ring step: within the same limits of its plain
+        # version, and its merge bit for bit _merge's on the card given
+        # the kernel's own (num, m, l).
+        for acc_label, acc in k3_accumulators(b, sq, h, d, 1000 + seed):
+            what = f"{label}, fused step from a {acc_label} accumulator"
+            got = K.block_attention_merge_(*(t.clone() for t in acc), q, k, v,
+                                           qo, ko, causal)
+            plain = K.block_attention_merge_plain(
+                *(t.clone() for t in acc), q, k, v, qo, ko, causal
+            )
+            errs = k3_against_plain(what, got, plain)
+            own = K.merge_plain(*acc, *block)
+            torch.cuda.synchronize()
+            for name_, g_, o_ in zip(("num", "m", "l"), got, own):
+                require(torch.equal(g_, o_),
+                        f"K3 {what}: the fused merge's {name_} is not "
+                        f"_merge's bit for bit (max diff "
+                        f"{float((g_ - o_).abs().max()):.3e})")
+            print(f"[K3] {what}: {errs}; merge bit-equal to _merge",
+                  flush=True)
+            del got, plain, own
+        del q, k, v, block
+    print(f"[kernels] K3 and its fused ring step match their plain versions "
+          f"within num {K3_NUM_ATOL}, m {K3_M_ATOL}, l {K3_L_RTOL} relative "
+          f"({len(k3_cases)} cases, the fused step from a first-step and a "
+          f"running accumulator; its merge bit-equal to _merge)", flush=True)
 
     # The ring on the card against a full reference that does not go
     # through K3 (the paths' own checks compare K3's ring with K3's full
@@ -452,14 +507,23 @@ def main() -> int:
     for s_local, h, d in ((128, 4, 64), (64, 2, 32)):
         fn, shard = R.make_ring_attention([dev] * 8)
         q, k, v = k3_inputs(1, 8 * s_local, 8 * s_local, h, d, 200)
-        out = torch.cat(fn(shard(q), shard(k), shard(v)), dim=1)
+        shards = (shard(q), shard(k), shard(v))
+        before = (K.block_attention.launches,
+                  K.block_attention_merge_.launches)
+        out = torch.cat(fn(*shards), dim=1)
+        # One launch a ring step: the fused step, n^2 of them.
+        require((K.block_attention.launches - before[0],
+                 K.block_attention_merge_.launches - before[1]) == (64, 64),
+                f"ring of 8: {K.block_attention.launches - before[0]} K3 "
+                f"launches, {K.block_attention_merge_.launches - before[1]} "
+                f"fused, want 64 fused")
         pnum, _, pl = K.block_attention_plain(q, k, v, 0, 0, True)
         err = float((out - R._normalise(pnum, pl, q.dtype)).abs().max())
         print(f"[K3] ring of 8 on the card, S_local {s_local}, H {h}, D {d}, "
               f"against the plain full reference: max err {err:.3e}",
               flush=True)
         require(err < RING_ATOL, f"ring against the plain reference: {err}")
-        del q, k, v, out, pnum, pl
+        del q, k, v, shards, out, pnum, pl
 
     # K4 bit for bit: the same fp32 adds in index order and IEEE division
     # as its plain version, so every bit agrees (NaN where either has one).
@@ -685,39 +749,6 @@ def main() -> int:
             "bytes" if by_bytes >= by_ops else "operations"
         )
 
-    x = torch.zeros(n_x, device=dev)
-    c = torch.full((4096, 4096), 0.5, dtype=torch.bfloat16, device=dev)
-    timing = {}
-    k1_bound, k1_by = bound(2 * 4 * n_x, n_x)
-    timing["stream_increment_"] = dict(
-        at=f"x fp32 [{n_x}] (1 GiB), in place",
-        ms=time_ms(lambda: K.stream_increment_(x), 50),
-        plain_ms=time_ms(lambda: K.stream_increment_plain_(x), 50),
-        library_ms=time_ms(lambda: x.add_(1.0), 50),
-        bound_ms=k1_bound, bound_by=k1_by,
-    )
-    shapes = []
-    for label, t, flush in (
-        (f"x fp32 [{n_x}] (1 GiB)", x, False),
-        ("C bf16 [4096, 4096], cold L2", c, True),
-    ):
-        b_ms, b_by = bound(t.numel() * t.element_size() + 12, 4 * t.numel())
-        shapes.append(dict(
-            at=label,
-            ms=time_ms(lambda: K.verify_stats(t, 0.5), 30, flush),
-            plain_ms=time_ms(lambda: K.verify_stats_plain(t, 0.5), 30, flush),
-            library_ms=time_ms(lambda: torch.aminmax(t), 30, flush),
-            bound_ms=b_ms, bound_by=b_by,
-        ))
-    timing["verify_stats"] = dict(shapes[0], shapes=shapes)
-    del x, c, flush_buf
-
-    # K3 at the deep probe's shard and the soak's (the main path's
-    # shapes) and at the canary's attention shape, each on the diagonal.
-    # Bytes: fp32 q, k, v read once, num, m, l written once.  Operations:
-    # 2 for each product of q.k and of p.v over the visible (i, j) pairs,
-    # at the bf16 tensor-core rate.  The library call is SDPA on bf16
-    # [B, H, S, D], the port never calls it.
     def kernel_device_ms(fn, iters: int, kernel: str) -> float:
         """Mean device time of the kernel named ``kernel`` per call, from
         a torch.profiler trace: the event times above also hold host
@@ -734,7 +765,48 @@ def main() -> int:
         require(bool(us), f"no {kernel} in the profiler trace")
         return sum(us) / iters / 1e3
 
+    x = torch.zeros(n_x, device=dev)
+    c = torch.full((4096, 4096), 0.5, dtype=torch.bfloat16, device=dev)
+    timing = {}
+    k1_bound, k1_by = bound(2 * 4 * n_x, n_x)
+    timing["stream_increment_"] = dict(
+        at=f"x fp32 [{n_x}] (1 GiB), in place",
+        ms=time_ms(lambda: K.stream_increment_(x), 50),
+        device_ms=kernel_device_ms(lambda: K.stream_increment_(x), 50,
+                                   "stream_increment_kernel"),
+        plain_ms=time_ms(lambda: K.stream_increment_plain_(x), 50),
+        library_ms=time_ms(lambda: x.add_(1.0), 50),
+        bound_ms=k1_bound, bound_by=k1_by,
+    )
     shapes = []
+    for label, t, flush in (
+        (f"x fp32 [{n_x}] (1 GiB)", x, False),
+        ("C bf16 [4096, 4096], cold L2", c, True),
+    ):
+        b_ms, b_by = bound(t.numel() * t.element_size() + 12, 4 * t.numel())
+        shapes.append(dict(
+            at=label,
+            ms=time_ms(lambda: K.verify_stats(t, 0.5), 30, flush),
+            # Both of K2's kernels (partials, final), without the flushes.
+            device_ms=kernel_device_ms(lambda: K.verify_stats(t, 0.5), 30,
+                                       "verify_"),
+            plain_ms=time_ms(lambda: K.verify_stats_plain(t, 0.5), 30, flush),
+            library_ms=time_ms(lambda: torch.aminmax(t), 30, flush),
+            bound_ms=b_ms, bound_by=b_by,
+        ))
+    timing["verify_stats"] = dict(shapes[0], shapes=shapes)
+    del x, c, flush_buf
+
+    # K3 at the deep probe's shard and the soak's (the main path's
+    # shapes) and at the canary's attention shape, each on the diagonal.
+    # Bytes: fp32 q, k, v read once, num, m, l written once.  Operations:
+    # 2 for each product of q.k and of p.v over the visible (i, j) pairs,
+    # at the bf16 tensor-core rate.  The library call is SDPA on bf16
+    # [B, H, S, D], the port never calls it.  The fused ring step
+    # (block_attention_merge_) at the same shapes, from the ring's
+    # first-step accumulator: bytes as K3's, plus acc_num, acc_m and
+    # acc_l read; no one PyTorch call computes it.
+    shapes, merge_shapes = [], []
     for label, (b, s_, h, d), iters in (
         ("deep-probe shard (1, 128, 4, 64), causal", (1, 128, 4, 64), 200),
         ("soak shard (1, 512, 16, 64), causal", (1, 512, 16, 64), 100),
@@ -767,8 +839,35 @@ def main() -> int:
             ),
             bound_ms=b_ms, bound_by=b_by,
         ))
-        del q, k, v, qh, kh, vh
-    timing["block_attention"] = dict(shapes[0], shapes=shapes)
+        acc = (torch.zeros_like(q),
+               torch.full((b, s_, h), R.NEG_INF, device=dev),
+               torch.zeros((b, s_, h), device=dev))
+        mb_ms, mb_by = bound(
+            4 * (5 * b * s_ * h * d + 4 * b * s_ * h),
+            4 * b * h * d * pairs, BF16_PEAK_TFLOPS,
+        )
+        merge_shapes.append(dict(
+            at=f"{label}, fused ring step",
+            entry="block_attention_merge_",
+            ms=time_ms(
+                lambda: K.block_attention_merge_(*acc, q, k, v, 0, 0, True),
+                iters,
+            ),
+            device_ms=kernel_device_ms(
+                lambda: K.block_attention_merge_(*acc, q, k, v, 0, 0, True),
+                iters, "block_attention_kernel",
+            ),
+            plain_ms=time_ms(
+                lambda: K.block_attention_merge_plain(*acc, q, k, v, 0, 0,
+                                                      True),
+                iters,
+            ),
+            library_ms=None,
+            bound_ms=mb_ms, bound_by=mb_by,
+        ))
+        del q, k, v, qh, kh, vh, acc
+    timing["block_attention"] = dict(shapes[0],
+                                     shapes=shapes + merge_shapes)
 
     # K4 at the shapes of the main path's all-reduce (8 members of 2^20:
     # a reduce-scatter launch reads 8 chunks of 2^17, an all-gather launch
@@ -843,11 +942,13 @@ def main() -> int:
         for s in t.get("shapes", [t]):
             device = (f" (device {s['device_ms']:.4f} ms by the profiler)"
                       if "device_ms" in s else "")
-            print(f"[timing] {kname} {s['at']}: kernel {s['ms']:.4f} ms"
-                  f"{device}, "
+            library = ("none" if s["library_ms"] is None
+                       else f"{s['library_ms']:.4f} ms")
+            print(f"[timing] {s.get('entry', kname)} {s['at']}: kernel "
+                  f"{s['ms']:.4f} ms{device}, "
                   f"bound {s['bound_ms']:.4f} ms ({s['bound_by']}), "
-                  f"plain {s['plain_ms']:.4f} ms, library "
-                  f"{s['library_ms']:.4f} ms on {card}", flush=True)
+                  f"plain {s['plain_ms']:.4f} ms, library {library} on "
+                  f"{card}", flush=True)
 
     # The fused battery at a small size: the card against the CPU.
     on_gpu = port.run_host_probe([dev], fused=True, **SMALL)
@@ -863,6 +964,8 @@ def main() -> int:
     # -- 4-6. the main path, with launch counts per path -------------------
     fused.reset_battery_cache()
     launches = {k: 0 for k in K.launch_counts()}
+    # The fused ring step's own share of K3's launches.
+    launches["block_attention_merge_"] = 0
 
     battery_kernels = ("stream_increment_", "verify_stats")
     ring_kernels = ("block_attention",)
@@ -874,13 +977,16 @@ def main() -> int:
         K.reset_launch_counts()
         out = fn()
         counts = K.launch_counts()
+        fused_steps = K.block_attention_merge_.launches
         print(f"[launches] {label}: "
-              + ", ".join(f"{k} {n}" for k, n in counts.items()), flush=True)
+              + ", ".join(f"{k} {n}" for k, n in counts.items())
+              + f" (of K3's, fused ring steps {fused_steps})", flush=True)
         for kname in must:
             require(counts[kname] > 0,
                     f"{kname} was not launched on the {label} path")
         for kname, n in counts.items():
             launches[kname] += n
+        launches["block_attention_merge_"] += fused_steps
         return out
 
     def all_ok(checks, what: str) -> None:
@@ -1207,6 +1313,13 @@ def main() -> int:
           f"ok={deep.ok} {deep.detail} latency {deep.latency_ms:.3f} ms "
           f"{json.dumps(deep.metrics)}", flush=True)
     require(deep.ok, f"deep probe: {deep.detail}")
+    # Two rings of 8 (the checked call and the timed round), one fused
+    # launch a step, and one K3 launch for the full reference.
+    require((K.launch_counts()["block_attention"],
+             K.block_attention_merge_.launches) == (129, 128),
+            f"deep probe: {K.launch_counts()['block_attention']} K3 "
+            f"launches, {K.block_attention_merge_.launches} fused; want "
+            f"129 and 128")
     require(deep.metrics["global_seq"] == 1024.0, f"deep probe: {deep}")
     require(float(deep.detail.rsplit(" ", 1)[1]) < RING_ATOL,
             f"deep probe error: {deep.detail}")
@@ -1224,6 +1337,68 @@ def main() -> int:
           f"on {card}", flush=True)
     require(soak["ok"] and soak["max_err"] < RING_ATOL, f"soak: {soak}")
     require(soak["global_seq"] == 4096, f"soak: {soak}")
+    require(K.block_attention_merge_.launches == 128,
+            f"soak: {K.block_attention_merge_.launches} fused launches, "
+            f"want 128")
+
+    # The deep probe's ring and the soak's, timed with the fused step and
+    # with the old one (K3 + torch _merge) in one run, in turns.
+    def ring_old_step(q_shards, k_shards, v_shards, devices, causal=True):
+        """ring_attention before the fused step, kept here to time against
+        it: a step is K3, then the merge in torch ops."""
+        n = len(devices)
+        B, S, H, D = q_shards[0].shape
+        accs = [
+            (torch.zeros((B, S, H, D), device=d_),
+             torch.full((B, S, H), R.NEG_INF, device=d_),
+             torch.zeros((B, S, H), device=d_))
+            for d_ in devices
+        ]
+        cur_k, cur_v = list(k_shards), list(v_shards)
+        for step in range(n):
+            for rank in range(n):
+                block = K.block_attention(
+                    q_shards[rank], cur_k[rank], cur_v[rank],
+                    rank * S, ((rank - step) % n) * S, causal,
+                )
+                accs[rank] = K.merge_plain(*accs[rank], *block)
+            if step + 1 < n:
+                cur_k = [cur_k[(i - 1) % n].to(devices[i], non_blocking=True)
+                         for i in range(n)]
+                cur_v = [cur_v[(i - 1) % n].to(devices[i], non_blocking=True)
+                         for i in range(n)]
+        return [R._normalise(num, den, q.dtype)
+                for (num, _, den), q in zip(accs, q_shards)]
+
+    def ring_round_ms(old: bool, **kw) -> float:
+        fused_ring = R.ring_attention
+        if old:
+            R.ring_attention = ring_old_step
+        try:
+            res = R.ring_attention_soak(ring, rounds=RING_TIMED_ROUNDS, **kw)
+        finally:
+            R.ring_attention = fused_ring
+        require(res["ok"], f"ring ({'old' if old else 'fused'} step): {res}")
+        return res["latency_ms"]
+
+    ring_steps = {}
+    for label, kw in (
+        ("deep probe, S 1024", dict(seq_per_device=128)),
+        ("soak, S 4096", dict(seq_per_device=512, heads=16, head_dim=64)),
+    ):
+        runs = {"fused": [], "old": []}
+        for step in ("fused", "old", "old", "fused"):
+            runs[step].append(ring_round_ms(step == "old", **kw))
+        fused_ms = sum(runs["fused"]) / 2
+        old_ms = sum(runs["old"]) / 2
+        ring_steps[label] = dict(fused_ms=runs["fused"], old_ms=runs["old"],
+                                 ratio=fused_ms / old_ms)
+        print(f"[ring] {label} over [cuda:0] * 8, {RING_TIMED_ROUNDS} rounds "
+              f"a run, runs fused, old, old, fused: fused step "
+              f"{runs['fused'][0]:.3f} / {runs['fused'][1]:.3f} ms a round, "
+              f"old step (K3 + torch _merge) {runs['old'][0]:.3f} / "
+              f"{runs['old'][1]:.3f} ms; fused / old {fused_ms / old_ms:.3f} "
+              f"on {card}", flush=True)
 
     def elastic_rounds():
         er = R.ElasticRingSoak(ring, n_slices=4)
@@ -1640,6 +1815,10 @@ def main() -> int:
         "peer_reduce": "k8s_operator_libs_tpu/health/probes.py:617",
         "peer_gather": "k8s_operator_libs_tpu/workloads/canary.py:211",
     }
+    for row in timing["block_attention"]["shapes"]:
+        if row.get("entry") == "block_attention_merge_":
+            row["launches"] = launches["block_attention_merge_"]
+    timing["block_attention"]["ring_steps"] = ring_steps
     kernels = [
         dict(
             name=kname, route="cuda", source=source[kname],

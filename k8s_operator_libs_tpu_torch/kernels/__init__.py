@@ -2,19 +2,24 @@
 
 - :mod:`.battery`: K1 ``stream_increment_`` and K2 ``verify_stats``
   (``csrc/battery_kernels.cu``);
-- :mod:`.attention`: K3 ``block_attention`` (``csrc/attention_kernels.cu``);
+- :mod:`.attention`: K3 ``block_attention`` and the fused ring step
+  ``block_attention_merge_`` (``csrc/attention_kernels.cu``);
 - :mod:`.collectives`: K4 ``peer_reduce`` and K5 ``peer_gather``
   (``csrc/collective_kernels.cu``) and the host's collectives built on
   them, ``all_reduce`` (and its persistent form ``all_reduce_init``),
   ``all_gather`` and ``ring_shift``.
 
-``launch_counts()`` reads every wrapper's launch count and
-``reset_launch_counts()`` zeroes them.
+``launch_counts()`` reads every kernel's launch count and
+``reset_launch_counts()`` zeroes them (the fused ring step's launches
+count as K3's, and on ``block_attention_merge_.launches`` as well).
 """
 
 from k8s_operator_libs_tpu_torch.kernels.attention import (
     block_attention,
+    block_attention_merge_,
+    block_attention_merge_plain,
     block_attention_plain,
+    merge_plain,
 )
 from k8s_operator_libs_tpu_torch.kernels.battery import (
     stream_increment_,
@@ -44,7 +49,7 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
+    for k in (*KERNELS, block_attention_merge_):
         k.launches = 0
 
 
@@ -54,9 +59,12 @@ __all__ = [
     "all_reduce",
     "all_reduce_init",
     "block_attention",
+    "block_attention_merge_",
+    "block_attention_merge_plain",
     "block_attention_plain",
     "launch_counts",
     "load_library",
+    "merge_plain",
     "peer_gather",
     "peer_gather_plain",
     "peer_reduce",

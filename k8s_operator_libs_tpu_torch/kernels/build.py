@@ -125,6 +125,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i, vp,  # device, stream
     ]
     lib.attention_block_f32.restype = i
+    lib.attention_block_merge_f32.argtypes = [
+        vp, vp, vp, vp, vp, vp,  # acc_num, acc_m, acc_l, q, k, v
+        i, i, i, i, i,  # B, Sq, Sk, H, D
+        ll, ll, i, f,  # q_offset, k_offset, causal, scale
+        i, vp,  # device, stream
+    ]
+    lib.attention_block_merge_f32.restype = i
     lib.collective_peer_enable.argtypes = [i, i]
     lib.collective_peer_enable.restype = i
     lib.collective_peer_reduce.argtypes = [

@@ -4,9 +4,10 @@ Counterpart of ``k8s_operator_libs_tpu.workloads.ring_attention``.  The
 sequence dimension is cut into one shard per ring member; K/V shards
 rotate around the ring while each member accumulates its queries'
 attention with online (flash-style) softmax, so attention spans a
-sequence n times longer than any one device holds.  Each block step is
-the hand-written kernel K3 (:func:`~k8s_operator_libs_tpu_torch.kernels.
-block_attention`); the merge is torch ops.
+sequence n times longer than any one device holds.  Each ring step is
+one launch of the hand-written kernel K3 with the merge fused in
+(:func:`~k8s_operator_libs_tpu_torch.kernels.block_attention_merge_`),
+which updates the member's accumulator in place.
 
 One process drives every listed device, as the JAX single-controller
 mesh does.  A K/V shard moves to the next member with
@@ -33,7 +34,10 @@ import numpy as np
 import torch
 
 from k8s_operator_libs_tpu_torch.health.probes import cuda_devices
-from k8s_operator_libs_tpu_torch.kernels import block_attention
+from k8s_operator_libs_tpu_torch.kernels import (
+    block_attention,
+    block_attention_merge_,
+)
 from k8s_operator_libs_tpu_torch.kernels.attention import NEG_INF
 
 # Largest global sequence checked against the O(S²) full reference.
@@ -47,18 +51,6 @@ def _synchronize(devices: Sequence[torch.device]) -> None:
     for dev in {torch.device(d) for d in devices}:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-
-
-def _merge(acc_num, acc_m, acc_den, num, m, den):
-    """Merge a new block into the online-softmax accumulator."""
-    new_m = torch.maximum(acc_m, m)
-    a = torch.exp(acc_m - new_m)
-    b = torch.exp(m - new_m)
-    return (
-        acc_num * a[..., None] + num * b[..., None],
-        new_m,
-        acc_den * a + den * b,
-    )
 
 
 def _normalise(num, den, dtype):
@@ -86,6 +78,7 @@ def ring_attention(
             f"{len(q_shards)}, {len(k_shards)}, {len(v_shards)}"
         )
     B, S, H, D = q_shards[0].shape
+    # Fresh accumulators each call: the fused step updates them in place.
     accs = [
         (
             torch.zeros((B, S, H, D), dtype=torch.float32, device=dev),
@@ -100,11 +93,10 @@ def ring_attention(
             # After ``step`` rotations member ``rank`` holds the block
             # that started at ``rank - step`` (mod n).
             kv_rank = (rank - step) % n
-            num, m, den = block_attention(
-                q_shards[rank], cur_k[rank], cur_v[rank],
+            block_attention_merge_(
+                *accs[rank], q_shards[rank], cur_k[rank], cur_v[rank],
                 q_offset=rank * S, k_offset=kv_rank * S, causal=causal,
             )
-            accs[rank] = _merge(*accs[rank], num, m, den)
         if step + 1 < n:
             # Each member's block moves to the next member.  The lists
             # are built anew: ``.to()`` onto the same device returns the

@@ -6,8 +6,11 @@ difference round the same way in numpy and PyTorch, and the kernels
 compute the same operations.  K3 (``block_attention``) is held on the
 card within the tolerances ``chip_smoke.py`` states for it: m 1e-4
 absolute, l 1e-4 relative, num 5e-2 absolute (bf16 rounding of p after
-fp32 sums taken in another order); its plain version is held against
-the JAX package in ``tests/test_torch_ring_attention.py``.  K4
+fp32 sums taken in another order); so is its fused ring step
+``block_attention_merge_`` against ``block_attention_merge_plain``, whose
+merge must also equal ``merge_plain`` applied on the card to the
+kernel's own ``(num, m, l)`` bit for bit.  Their plain versions are held
+against the JAX package in ``tests/test_torch_ring_attention.py``.  K4
 (``peer_reduce``) is held on the card bit for bit: fp32 adds in index
 order and an IEEE division in both; its plain version and the
 collectives built on it are held against the JAX package in
@@ -28,10 +31,13 @@ from k8s_operator_libs_tpu_torch.kernels import (  # noqa: E402
     all_reduce,
     all_reduce_init,
     block_attention,
+    block_attention_merge_,
+    block_attention_merge_plain,
     block_attention_plain,
     build,
     collectives,
     launch_counts,
+    merge_plain,
     peer_gather,
     peer_gather_plain,
     peer_reduce,
@@ -44,6 +50,27 @@ from k8s_operator_libs_tpu_torch.kernels import (  # noqa: E402
 )
 
 SIZES = [1, 7, 4096, 1_000_003]
+# K3's card cases: (B, Sq, Sk, H, D), q_offset, k_offset, causal.
+K3_CARD_CASES = [
+    ((1, 128, 128, 4, 64), 384, 0, True),
+    ((1, 128, 128, 4, 64), 384, 384, True),
+    ((1, 128, 128, 4, 64), 384, 640, True),  # wholly masked
+    # The elastic ring's shards (D 32) and its full reference.
+    ((1, 64, 64, 2, 32), 192, 0, True),
+    ((1, 64, 64, 2, 32), 192, 192, True),
+    ((1, 64, 64, 2, 32), 192, 320, True),
+    ((1, 512, 512, 2, 32), 0, 0, True),
+    ((2, 100, 100, 3, 16), 0, 0, True),
+    ((1, 70, 90, 2, 8), 5, 0, True),
+    ((2, 128, 192, 4, 64), 0, 0, False),
+    ((1, 96, 80, 2, 128), 16, 0, True),
+    # Head dims whose rows the block's threads do not tile evenly (D
+    # padded to 48, 80, 96 and 112), ragged and non-causal among them.
+    ((1, 70, 90, 2, 40), 5, 0, True),
+    ((2, 100, 77, 3, 72), 30, 0, True),
+    ((1, 64, 64, 2, 96), 10, 0, True),
+    ((1, 96, 130, 2, 104), 0, 0, False),
+]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -158,6 +185,7 @@ def test_build_targets_sm90a_and_binds_every_entry_point():
         "battery_verify_stats_bf16",
         "battery_error_string",
         "attention_block_f32",
+        "attention_block_merge_f32",
         "collective_peer_enable",
         "collective_peer_reduce",
         "collective_peer_gather",
@@ -207,23 +235,8 @@ def test_block_attention_matches_plain_version_on_the_card():
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    cases = [
-        # (B, Sq, Sk, H, D), q_offset, k_offset, causal
-        ((1, 128, 128, 4, 64), 384, 0, True),
-        ((1, 128, 128, 4, 64), 384, 384, True),
-        ((1, 128, 128, 4, 64), 384, 640, True),  # wholly masked
-        # The elastic ring's shards (D 32) and its full reference.
-        ((1, 64, 64, 2, 32), 192, 0, True),
-        ((1, 64, 64, 2, 32), 192, 192, True),
-        ((1, 64, 64, 2, 32), 192, 320, True),
-        ((1, 512, 512, 2, 32), 0, 0, True),
-        ((2, 100, 100, 3, 16), 0, 0, True),
-        ((1, 70, 90, 2, 8), 5, 0, True),
-        ((2, 128, 192, 4, 64), 0, 0, False),
-        ((1, 96, 80, 2, 128), 16, 0, True),
-    ]
     before = block_attention.launches
-    for (b, sq, sk, h, d), qo, ko, causal in cases:
+    for (b, sq, sk, h, d), qo, ko, causal in K3_CARD_CASES:
         q = torch.randn((b, sq, h, d), device=dev, generator=gen)
         k = torch.randn((b, sk, h, d), device=dev, generator=gen)
         v = torch.randn((b, sk, h, d), device=dev, generator=gen)
@@ -233,10 +246,63 @@ def test_block_attention_matches_plain_version_on_the_card():
         assert float((m - pm).abs().max()) <= 1e-4
         assert float(((l - pl).abs() / pl.clamp_min(1.0)).max()) <= 1e-4
         assert float((num - pnum).abs().max()) <= 5e-2
-    assert block_attention.launches == before + len(cases)
+    assert block_attention.launches == before + len(K3_CARD_CASES)
     with pytest.raises(ValueError):
         block_attention(q[..., :4].contiguous(), k[..., :4].contiguous(),
                         v[..., :4].contiguous())
+
+
+@pytest.mark.cuda
+def test_block_attention_merge_matches_plain_version_on_the_card():
+    """The fused ring step at the shapes of the block test above, against
+    its plain version within K3's limits, from the ring's first-step
+    accumulator and from a random running one; its merge bit for bit
+    against ``merge_plain`` on the kernel's own block outputs; and a
+    ring over ``[cuda:0] * 4`` in one launch a step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    from k8s_operator_libs_tpu_torch.workloads.ring_attention import (
+        make_ring_attention,
+    )
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    before = block_attention.launches
+    for (b, sq, sk, h, d), qo, ko, causal in K3_CARD_CASES:
+        q = torch.randn((b, sq, h, d), device=dev, generator=gen)
+        k = torch.randn((b, sk, h, d), device=dev, generator=gen)
+        v = torch.randn((b, sk, h, d), device=dev, generator=gen)
+        running = (
+            torch.randn((b, sq, h, d), device=dev, generator=gen),
+            torch.randn((b, sq, h), device=dev, generator=gen) + 1.0,
+            torch.rand((b, sq, h), device=dev, generator=gen) * 20 + 0.5,
+        )
+        first = (torch.zeros((b, sq, h, d), device=dev),
+                 torch.full((b, sq, h), -1e30, device=dev),
+                 torch.zeros((b, sq, h), device=dev))
+        block = block_attention(q, k, v, qo, ko, causal)
+        for acc in (first, running):
+            got = block_attention_merge_(*(t.clone() for t in acc), q, k, v,
+                                         qo, ko, causal)
+            plain = block_attention_merge_plain(*(t.clone() for t in acc),
+                                                q, k, v, qo, ko, causal)
+            own = merge_plain(*acc, *block)
+            torch.cuda.synchronize()
+            for g, o in zip(got, own):
+                assert torch.equal(g, o)
+            num, m, l = got
+            pnum, pm, pl = plain
+            assert float((m - pm).abs().max()) <= 1e-4
+            assert float(((l - pl).abs() / pl.clamp_min(1.0)).max()) <= 1e-4
+            assert float((num - pnum).abs().max()) <= 5e-2
+    assert block_attention.launches == before + 3 * len(K3_CARD_CASES)
+    fn, shard = make_ring_attention([dev] * 4)
+    q, k, v = (torch.randn((1, 4 * 64, 2, 32), device=dev, generator=gen)
+               for _ in range(3))
+    before = block_attention.launches
+    fn(shard(q), shard(k), shard(v))
+    assert block_attention.launches == before + 4 * 4
 
 
 @pytest.mark.cuda

@@ -11,6 +11,11 @@ Tolerances:
 - block step, plain K3 against JAX ``_block_attention``: 1e-5 absolute on
   num, m and l.  Both round q, k, p and v to bf16 at the same points and
   sum in fp32; only the order of the fp32 sums differs.
+- fused ring step, ``block_attention_merge_plain`` against JAX
+  ``_block_attention`` followed by ``_merge``: the same 1e-5 absolute on
+  the accumulator's num, m and l.  The merge scales both sides by
+  factors of at most 1 and adds them in the same order, so it keeps the
+  block step's differences (and an ulp of ``exp``).
 - ring against the JAX ring: 1e-5 absolute.  The two rings visit the same
   blocks with the same per-block maxima, so only fp32 summation order
   separates them (at most 3e-7 at these shapes on the CPU).
@@ -35,6 +40,8 @@ from k8s_operator_libs_tpu.workloads import ring_attention as jra  # noqa: E402
 from k8s_operator_libs_tpu_torch.health import probes as tprobes  # noqa: E402
 from k8s_operator_libs_tpu_torch.kernels import (  # noqa: E402
     block_attention,
+    block_attention_merge_,
+    block_attention_merge_plain,
     block_attention_plain,
     launch_counts,
 )
@@ -150,6 +157,108 @@ def test_block_wrapper_rejects_bad_inputs(bad, exc):
     q, k, v = _torch(*_qkv(2, 1, 16, 2, 8))
     with pytest.raises(exc):
         block_attention(*bad(q, k, v))
+
+
+# --- the fused ring step ---------------------------------------------------
+
+
+def _accumulator(seed, batch, seq, heads, dim, first_step):
+    """The ring's first-step accumulator (num 0, m NEG_INF, l 0) or a
+    random running one (l > 0, m about a row max)."""
+    shape = (batch, seq, heads)
+    if first_step:
+        return (np.zeros(shape + (dim,), np.float32),
+                np.full(shape, jra.NEG_INF, np.float32),
+                np.zeros(shape, np.float32))
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape + (dim,)).astype(np.float32),
+            (rng.standard_normal(shape) + 1.0).astype(np.float32),
+            rng.uniform(0.5, 20.0, shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("first_step", [True, False],
+                         ids=["first-step", "running"])
+@pytest.mark.parametrize("dim", [16, 32, 64])
+@pytest.mark.parametrize(
+    "q_offset, k_offset, causal",
+    [
+        (48, 0, True),  # before the diagonal: wholly visible
+        (10, 10, True),  # on the diagonal
+        (10, 30, True),  # after it: a ragged diagonal
+        (0, 48, True),  # wholly masked
+        (0, 0, False),
+    ],
+    ids=["before", "on", "after", "masked", "non-causal"],
+)
+def test_block_merge_plain_matches_jax_block_then_merge(
+    q_offset, k_offset, causal, dim, first_step
+):
+    q, k, v = _qkv(3, 2, 40, 3, dim, kv_seq=24)
+    acc = _accumulator(4, 2, 40, 3, dim, first_step)
+    sq, sk = q.shape[1], k.shape[1]
+    if causal:
+        mask = (q_offset + np.arange(sq))[:, None] >= (
+            k_offset + np.arange(sk)
+        )[None, :]
+    else:
+        mask = np.ones((sq, sk), bool)
+    block = jra._block_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask)
+    )
+    want = jra._merge(*(jnp.asarray(a) for a in acc), *block)
+    tacc = _torch(*acc)
+    got = block_attention_merge_plain(*tacc, *_torch(q, k, v), q_offset,
+                                      k_offset, causal)
+    for g, t in zip(got, tacc):
+        assert g is t  # updated in place
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=BLOCK_ATOL,
+                                   rtol=0)
+    if first_step and not mask.any():
+        num, m, l = got
+        assert not num.any() and not m.any() and not l.any()
+
+
+def test_merge_wrapper_takes_plain_version_on_cpu():
+    q, k, v = _torch(*_qkv(5, 1, 16, 2, 8))
+    acc = _torch(*_accumulator(6, 1, 16, 2, 8, False))
+    want = [t.clone() for t in acc]
+    before = launch_counts()
+    block_attention_merge_plain(*want, q, k, v, 4, 2, True)
+    got = block_attention_merge_(*acc, q, k, v, 4, 2, True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert launch_counts() == before  # no kernel launch on the CPU
+
+
+@pytest.mark.parametrize(
+    "bad, exc",
+    [
+        (lambda a, q, k, v: (a, (q.double(), k, v)), TypeError),
+        (lambda a, q, k, v: (a, (q, k.bfloat16(), v)), TypeError),
+        (lambda a, q, k, v: (a, (q.transpose(1, 2), k, v)), ValueError),
+        (lambda a, q, k, v: (a, (q, k, v[:, :-1])), ValueError),
+        (lambda a, q, k, v: (a, (q[0], k[0], v[0])), ValueError),
+        (lambda a, q, k, v: ((a[0].double(), a[1], a[2]), (q, k, v)),
+         TypeError),
+        (lambda a, q, k, v: ((a[0], a[1][:, :-1].contiguous(), a[2]),
+                             (q, k, v)), ValueError),
+        (lambda a, q, k, v: ((a[0], a[1],
+                             a[2].transpose(1, 2).contiguous()
+                             .transpose(1, 2)), (q, k, v)), ValueError),
+        (lambda a, q, k, v: ((a[0], a[1], a[2][:, :, None]), (q, k, v)),
+         ValueError),
+        (lambda a, q, k, v: ((a[0], None, a[2]), (q, k, v)), TypeError),
+    ],
+    ids=["f64", "bf16", "strided", "kv-shape", "3-d", "acc-f64",
+         "acc-m-shape", "acc-l-strided", "acc-l-4-d", "acc-none"],
+)
+def test_merge_wrapper_rejects_bad_inputs(bad, exc):
+    q, k, v = _torch(*_qkv(7, 1, 16, 2, 8))
+    acc = _torch(*_accumulator(8, 1, 16, 2, 8, False))
+    accs, qkv = bad(acc, q, k, v)
+    with pytest.raises(exc):
+        block_attention_merge_(*accs, *qkv)
 
 
 # --- the ring ---------------------------------------------------------------
