@@ -11,9 +11,11 @@ Phases:
 1. the device: name, count, and ``nvidia-smi`` name and power limit;
 2. build the hand-written kernels from ``kernels/csrc`` with nvcc, one
    process per source, all at once;
-3. each kernel against its plain PyTorch version on the card: K1 and K2
-   exactly, at the main path's shapes and at odd, unaligned, 0.25- and
-   NaN-seeded inputs; K3 within stated tolerances at every shape the
+3. each kernel against its plain PyTorch version on the card: K1, its
+   verifying pass (``stream_increment_verify_``, the fused battery's
+   last stream pass with the stream's check) and K2 exactly, at the main
+   path's shapes and at odd, unaligned, 0.25- and NaN-seeded inputs (a
+   NaN at the first and at the last element of the 1 GiB stream); K3 within stated tolerances at every shape the
    ring paths give it (shards before, on and after the diagonal, and
    each path's full reference), the canary's attention shape, odd
    shapes, non-causal and wholly masked blocks, and K3's fused ring step
@@ -32,18 +34,23 @@ Phases:
    2, 3, 4 and 8 members of the card against the plain version, with
    K4's times; K5 byte for byte at 2, 3, 4, 5 and 8 pieces of 2^20 and
    2^22 elements in all, ragged and unaligned, with the own range
-   skipped, and with rows a pitch apart, and the all-gather over 2, 3, 4
-   and 8 members against ``torch.cat``, with K5's times; and every
+   skipped, and with rows a pitch apart (whole vectors, rows of a length
+   that is not a multiple of 16 bytes, rows with a byte head and tail),
+   and the all-gather over 2, 3, 4 and 8 members against ``torch.cat``,
+   with K5's times; K1's time also at a persistent grid of 8 blocks an
+   SM, the design its tiles were chosen against; and every
    collective at the shapes the sharded and elastic canaries give it
    (the tp all-reduce of [16, 512, 1024] over 4 and 2 members, the
    gathers of [16, 512, 1024 / tp] along the last dimension, the dp
    all-reduce of a member's flat gradients over 2 members);
 4. the unfused battery at production size (n=4096 bf16, 1 GiB stream);
-5. the fused battery twice (a warm-up-cache miss, then a hit);
+5. the fused battery twice (a warm-up-cache miss, then a hit), with its
+   warm time and K2's launches a body (one: the check of C);
 6. the node agent publishing a report, which the port's NodeReportProber
    accepts, and the LocalDeviceProber;
 7. the host's collectives over 8 members of the one card: both ICI
-   probes at their defaults, the fused battery (a miss, then a hit) and
+   probes at their defaults, the fused battery (a miss, then a hit, with
+   K2's launches a body) and
    the unfused one over the 8 members, the LocalDeviceProber over them,
    and a ring in which member 0 keeps its own value, which must fail
    with the JAX package's detail; and the host time to enqueue one
@@ -94,7 +101,8 @@ Kernel launch counts are zeroed just before each path of phases 4-11
 paths, the ring paths, the battery with the deep flag, the canary, the
 sharded and elastic canaries, the unfused agent of the labelled node,
 the network-path checks) and read just after it: each path names the
-kernels it must launch (K1 and K2 on the battery paths, K3 on the ring
+kernels it must launch (K1 and K2 on the battery paths, K1's verifying
+pass as well on the fused ones, K3 on the ring
 paths, K4 and K5 on the all-reduce, sharded and 8-member network paths,
 K4 on the ring shift's), and no path may have fallen back from the
 fused battery.  A child process that fails or outlives its time fails
@@ -319,7 +327,8 @@ def main() -> int:
           f"({sources})", flush=True)
 
     # -- 3. kernels against their plain versions ---------------------------
-    max_err = {"stream_increment_": 0.0, "verify_stats": 0.0,
+    max_err = {"stream_increment_": 0.0, "stream_increment_verify_": 0.0,
+               "verify_stats": 0.0,
                "block_attention": 0.0, "peer_reduce": 0.0,
                "peer_gather": 0.0}
 
@@ -334,6 +343,8 @@ def main() -> int:
         require(diff == 0.0, f"{kname} {what}: max |kernel - plain| {diff}")
 
     n_x = PROD["hbm_mib"] * 1024 * 1024 // 4
+    gen1 = torch.Generator(device=dev)
+    gen1.manual_seed(1)
     for n, off in ((n_x, 0), (1_000_003, 0), (1_000_003, 1), (5, 3)):
         x = torch.zeros(n + off, device=dev)[off:]
         y = x.clone()
@@ -342,6 +353,28 @@ def main() -> int:
             K.stream_increment_plain_(y)
         same("stream_increment_", x, y, f"n={n} offset={off}")
         require(x[0].item() == 3.0, "stream_increment_: 3 passes != 3.0")
+        # The verifying pass, on the chain's values and on random ones,
+        # then with a NaN at the first and at the last element.
+        for values in ("chain", "random"):
+            if values == "random":
+                x.copy_(torch.randn(n, device=dev, generator=gen1))
+                y.copy_(x)
+            for center in (0.0, 0.5):
+                what = f"n={n} offset={off} {values} center={center}"
+                same("stream_increment_verify_",
+                     K.stream_increment_verify_(x, center),
+                     K.stream_increment_verify_plain_(y, center), what)
+                same("stream_increment_", x, y, f"verifying pass, {what}")
+        for where in (0, n - 1):
+            x[where] = y[where] = float("nan")
+            got = K.stream_increment_verify_(x, 0.0)
+            same("stream_increment_verify_", got,
+                 K.stream_increment_verify_plain_(y, 0.0),
+                 f"n={n} offset={off} NaN at {where}")
+            require(bool(got.isnan().all()),
+                    f"stream_increment_verify_ n={n}: NaN at {where} gave "
+                    f"{got.tolist()}")
+            x[where] = y[where] = 0.0
         del x, y
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -375,9 +408,9 @@ def main() -> int:
     require(bool(K.verify_stats(x, 0.0).isnan().all()),
             "NaN at the end of the 1 GiB stream did not propagate")
     del c, x
-    print("[kernels] K1 and K2 match their plain versions exactly "
-          "(1 GiB fp32, 4096^2 bf16, odd length, unaligned, 0.25, NaN)",
-          flush=True)
+    print("[kernels] K1, its verifying pass and K2 match their plain "
+          "versions exactly (1 GiB fp32, 4096^2 bf16, odd length, unaligned, "
+          "0.25, NaN at the first and last element)", flush=True)
 
     def k3_inputs(b, sq, sk, h, d, seed):
         g = torch.Generator(device=dev)
@@ -636,15 +669,20 @@ def main() -> int:
             del pieces, dst, want
     # Rows a pitch apart: the canary's gathers along the last dimension
     # (tp 4 and 2: 8192 rows of 256 or 512 fp32 a piece), then ragged
-    # rows, unaligned, that take the byte path.
-    for k, rows, width, skew, gap in ((4, 16 * 512, 256, 0, 0),
-                                      (2, 16 * 512, 512, 0, 0),
-                                      (3, 1001, 67, 1, 1),
-                                      (5, 77, 1024, 3, 2)):
+    # rows, unaligned, that take the byte path, and rows of 256 bytes that
+    # share an offset 4 bytes past a 16-byte boundary with their
+    # destination (a pitch of 16-byte multiples): whole vectors between a
+    # byte head and tail on every row.  (k, rows, width, skew, gap,
+    # first offset).
+    for k, rows, width, skew, gap, lead in ((4, 16 * 512, 256, 0, 0, 0),
+                                            (2, 16 * 512, 512, 0, 0, 0),
+                                            (3, 1001, 67, 1, 1, 1),
+                                            (5, 77, 1024, 3, 2, 2),
+                                            (3, 129, 64, 1, 4, 1)):
         pitch = k * width + gap
         pieces = [torch.randn(rows * width + skew, device=dev,
                               generator=gen)[skew:] for _ in range(k)]
-        offsets = [i * width + gap for i in range(k)]
+        offsets = [i * width + lead for i in range(k)]
         dst = torch.randn(rows * pitch, device=dev, generator=gen)
         want = dst.clone()
         K.peer_gather(dst, pieces, offsets, rows, pitch)
@@ -665,7 +703,8 @@ def main() -> int:
             del shards
     print(f"[kernels] K5 matches its plain version byte for byte ({k5_cases} "
           f"cases: k 2, 3, 4, 5, 8; 2^20, 2^22, ragged, unaligned, the own "
-          f"range skipped; rows a pitch apart), and all_gather matches "
+          f"range skipped; rows a pitch apart, whole, ragged and with byte "
+          f"heads and tails), and all_gather matches "
           f"torch.cat over 2, 3, 4 and 8 members of the card", flush=True)
 
     # The collectives at the shapes the sharded canary (dp 2 x tp 4) and
@@ -749,10 +788,11 @@ def main() -> int:
             "bytes" if by_bytes >= by_ops else "operations"
         )
 
-    def kernel_device_ms(fn, iters: int, kernel: str) -> float:
-        """Mean device time of the kernel named ``kernel`` per call, from
-        a torch.profiler trace: the event times above also hold host
-        launch cost where a launch is shorter than the host's work."""
+    def kernel_device_ms(fn, iters: int, *kernels: str) -> float:
+        """Mean device time per call of the kernels whose names hold one
+        of ``kernels``, from a torch.profiler trace: the event times above
+        also hold host launch cost where a launch is shorter than the
+        host's work."""
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -761,14 +801,27 @@ def main() -> int:
                 fn()
             torch.cuda.synchronize()
         us = [op.self_device_time_total for op in prof.key_averages()
-              if op.device_type == DeviceType.CUDA and kernel in op.key]
-        require(bool(us), f"no {kernel} in the profiler trace")
+              if op.device_type == DeviceType.CUDA
+              and any(k in op.key for k in kernels)]
+        require(bool(us), f"no {kernels} in the profiler trace")
         return sum(us) / iters / 1e3
 
     x = torch.zeros(n_x, device=dev)
     c = torch.full((4096, 4096), 0.5, dtype=torch.bfloat16, device=dev)
     timing = {}
     k1_bound, k1_by = bound(2 * 4 * n_x, n_x)
+    # K1's kernel at a persistent grid, 8 blocks of 256 an SM (the kernel
+    # strides over its tiles when given fewer blocks than tiles), launched
+    # through the library directly: the design its grid of one tile a
+    # block was measured against.
+    lib = build.load_library()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    persistent_ms = time_ms(
+        lambda: lib.battery_stream_increment(
+            x.data_ptr(), n_x, 0, sms * 8,
+            torch.cuda.current_stream(dev).cuda_stream),
+        50,
+    )
     timing["stream_increment_"] = dict(
         at=f"x fp32 [{n_x}] (1 GiB), in place",
         ms=time_ms(lambda: K.stream_increment_(x), 50),
@@ -777,6 +830,27 @@ def main() -> int:
         plain_ms=time_ms(lambda: K.stream_increment_plain_(x), 50),
         library_ms=time_ms(lambda: x.add_(1.0), 50),
         bound_ms=k1_bound, bound_by=k1_by,
+        persistent_grid_ms=persistent_ms,
+    )
+    print(f"[timing] stream_increment_ at a persistent grid of {sms * 8} "
+          f"blocks (8 an SM): {persistent_ms:.4f} ms by events on {card}",
+          flush=True)
+    # The verifying pass: K1's bytes, the 12 bytes of its result, and four
+    # operations an element (the add and the three folds).  Its library
+    # yardstick is two calls, x.add_(1.0) then torch.aminmax(x).
+    kv_bound, kv_by = bound(2 * 4 * n_x + 12, 4 * n_x)
+    timing["stream_increment_verify_"] = dict(
+        at=f"x fp32 [{n_x}] (1 GiB), in place, center 0",
+        ms=time_ms(lambda: K.stream_increment_verify_(x, 0.0), 50),
+        # The pass and the two merges of its partials.
+        device_ms=kernel_device_ms(
+            lambda: K.stream_increment_verify_(x, 0.0), 50,
+            "stream_increment_kernel", "merge_partials"),
+        plain_ms=time_ms(lambda: K.stream_increment_verify_plain_(x, 0.0),
+                         50),
+        library_ms=time_ms(lambda: (x.add_(1.0), torch.aminmax(x)), 50),
+        library="x.add_(1.0) then torch.aminmax(x), two calls",
+        bound_ms=kv_bound, bound_by=kv_by,
     )
     shapes = []
     for label, t, flush in (
@@ -787,9 +861,9 @@ def main() -> int:
         shapes.append(dict(
             at=label,
             ms=time_ms(lambda: K.verify_stats(t, 0.5), 30, flush),
-            # Both of K2's kernels (partials, final), without the flushes.
+            # Both of K2's kernels (partials, merge), without the flushes.
             device_ms=kernel_device_ms(lambda: K.verify_stats(t, 0.5), 30,
-                                       "verify_"),
+                                       "verify_partials", "merge_partials"),
             plain_ms=time_ms(lambda: K.verify_stats_plain(t, 0.5), 30, flush),
             library_ms=time_ms(lambda: torch.aminmax(t), 30, flush),
             bound_ms=b_ms, bound_by=b_by,
@@ -944,6 +1018,8 @@ def main() -> int:
                       if "device_ms" in s else "")
             library = ("none" if s["library_ms"] is None
                        else f"{s['library_ms']:.4f} ms")
+            if "library" in s:
+                library += f" ({s['library']})"
             print(f"[timing] {s.get('entry', kname)} {s['at']}: kernel "
                   f"{s['ms']:.4f} ms{device}, "
                   f"bound {s['bound_ms']:.4f} ms ({s['bound_by']}), "
@@ -968,6 +1044,8 @@ def main() -> int:
     launches["block_attention_merge_"] = 0
 
     battery_kernels = ("stream_increment_", "verify_stats")
+    # The fused battery checks its stream in K1's last pass.
+    fused_kernels = battery_kernels + ("stream_increment_verify_",)
     ring_kernels = ("block_attention",)
 
     def on_path(label: str, fn, must: tuple[str, ...]):
@@ -988,6 +1066,21 @@ def main() -> int:
             launches[kname] += n
         launches["block_attention_merge_"] += fused_steps
         return out
+
+    def launches_a_body(label: str, bodies: int) -> None:
+        """K1 and K2 launches a fused battery body on the path just run
+        (its counts stand until the next path's reset): K2 once, on C;
+        K1 HBM_CHAIN_ITERS times, the last its verifying pass."""
+        c = K.launch_counts()
+        print(f"[fused] {label}: K2 launches a body "
+              f"{c['verify_stats'] / bodies:g} (the check of C), K1 "
+              f"{c['stream_increment_'] / bodies:g}, of them the verifying "
+              f"pass {c['stream_increment_verify_'] / bodies:g} (the check "
+              f"of the stream); {bodies} bodies", flush=True)
+        require(c["verify_stats"] == bodies
+                and c["stream_increment_verify_"] == bodies
+                and c["stream_increment_"] == fused.HBM_CHAIN_ITERS * bodies,
+                f"{label}: launches {c} over {bodies} bodies")
 
     def all_ok(checks, what: str) -> None:
         for r in checks:
@@ -1014,7 +1107,9 @@ def main() -> int:
     for attempt in ("cold", "warm"):
         checks = on_path(f"fused {attempt}",
                          lambda: port.run_host_probe(fused=True, **PROD),
-                         battery_kernels)
+                         fused_kernels)
+        # A miss runs the body twice: the warm-up, then the run.
+        launches_a_body(f"fused {attempt}", 2 if attempt == "cold" else 1)
         print(f"[fused] {attempt} production battery on {card}:")
         all_ok(checks, f"fused battery ({attempt})")
         runs.append(checks[1:])
@@ -1058,7 +1153,7 @@ def main() -> int:
     client = RecordingClient()
     agent = HealthAgent(client, "gpu-node-0", keys,
                         driver_revision="rev-smoke", **PROD)
-    report = on_path("agent", agent.run_once, battery_kernels)
+    report = on_path("agent", agent.run_once, fused_kernels)
     require(report.healthy, f"agent report unhealthy: {report.to_json()}")
     require(len(client.patches) == 1, f"patches: {client.patches}")
     node_name, patch = client.patches[0]
@@ -1076,7 +1171,7 @@ def main() -> int:
     require(verdict.healthy, f"NodeReportProber: {verdict.detail}")
     local = on_path("local prober",
                     lambda: port.LocalDeviceProber(**PROD).probe(group),
-                    battery_kernels)
+                    fused_kernels)
     require(local.healthy, f"LocalDeviceProber: {local.detail}")
     stats = fused.battery_stats()
     require(stats["fallbacks"] == 0,
@@ -1111,8 +1206,10 @@ def main() -> int:
         checks = on_path(
             f"fused {attempt}, 8 members",
             lambda: port.run_host_probe(members, fused=True, **PROD),
-            battery_kernels + collective_kernels,
+            fused_kernels + collective_kernels,
         )
+        launches_a_body(f"fused {attempt}, 8 members",
+                        ICI_MEMBERS * (2 if attempt == "cold" else 1))
         m = checks[1].metrics
         print(f"[collectives] fused {attempt} battery over 8 members, "
               f"battery_execute_ms {m['battery_execute_ms']:.3f}, "
@@ -1137,7 +1234,7 @@ def main() -> int:
     local8 = on_path(
         "local prober, 8 members",
         lambda: port.LocalDeviceProber(members, **PROD).probe(group),
-        battery_kernels + collective_kernels,
+        fused_kernels + collective_kernels,
     )
     require(local8.healthy, f"LocalDeviceProber over 8 members: "
                             f"{local8.detail}")
@@ -1418,7 +1515,7 @@ def main() -> int:
 
     checks = on_path("battery with deep=True, one device",
                      lambda: port.run_host_probe([dev], deep=True, **PROD),
-                     battery_kernels)
+                     fused_kernels)
     print(f"[ring] battery with deep=True on one device, on {card}:")
     all_ok(checks, "battery with deep=True")
     require(checks[-1].name == "ici_ring_attention"
@@ -1676,8 +1773,8 @@ def main() -> int:
     net_fallbacks = fused.battery_stats()["fallbacks"]
     net_ms = {}
     for label, where in (("1 member", [dev]), ("8 members", members)):
-        must = battery_kernels + (collective_kernels if len(where) > 1
-                                  else ())
+        must = fused_kernels + (collective_kernels if len(where) > 1
+                                else ())
         for attempt in ("cold", "warm"):
             t0 = time.perf_counter()
             checks = on_path(f"network-path checks, {label}, {attempt}",
@@ -1798,6 +1895,8 @@ def main() -> int:
     source = {
         "stream_increment_":
             "k8s_operator_libs_tpu_torch/kernels/csrc/battery_kernels.cu",
+        "stream_increment_verify_":
+            "k8s_operator_libs_tpu_torch/kernels/csrc/battery_kernels.cu",
         "verify_stats":
             "k8s_operator_libs_tpu_torch/kernels/csrc/battery_kernels.cu",
         "block_attention":
@@ -1809,6 +1908,7 @@ def main() -> int:
     }
     replaces = {
         "stream_increment_": "k8s_operator_libs_tpu/health/probes.py:517",
+        "stream_increment_verify_": "k8s_operator_libs_tpu/health/fused.py:204",
         "verify_stats": "k8s_operator_libs_tpu/health/fused.py:194",
         "block_attention":
             "k8s_operator_libs_tpu/workloads/ring_attention.py:55",

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels of the port, their plain versions and build.
 
-- :mod:`.battery`: K1 ``stream_increment_`` and K2 ``verify_stats``
+- :mod:`.battery`: K1 ``stream_increment_``, its verifying pass
+  ``stream_increment_verify_`` and K2 ``verify_stats``
   (``csrc/battery_kernels.cu``);
 - :mod:`.attention`: K3 ``block_attention`` and the fused ring step
   ``block_attention_merge_`` (``csrc/attention_kernels.cu``);
@@ -11,7 +12,8 @@
 
 ``launch_counts()`` reads every kernel's launch count and
 ``reset_launch_counts()`` zeroes them (the fused ring step's launches
-count as K3's, and on ``block_attention_merge_.launches`` as well).
+count as K3's, and on ``block_attention_merge_.launches`` as well; the
+verifying pass's count as K1's, and on its own count as well).
 """
 
 from k8s_operator_libs_tpu_torch.kernels.attention import (
@@ -24,6 +26,8 @@ from k8s_operator_libs_tpu_torch.kernels.attention import (
 from k8s_operator_libs_tpu_torch.kernels.battery import (
     stream_increment_,
     stream_increment_plain_,
+    stream_increment_verify_,
+    stream_increment_verify_plain_,
     verify_stats,
     verify_stats_plain,
 )
@@ -39,8 +43,8 @@ from k8s_operator_libs_tpu_torch.kernels.collectives import (
     ring_shift,
 )
 
-KERNELS = (stream_increment_, verify_stats, block_attention, peer_reduce,
-           peer_gather)
+KERNELS = (stream_increment_, stream_increment_verify_, verify_stats,
+           block_attention, peer_reduce, peer_gather)
 
 
 def launch_counts() -> dict[str, int]:
@@ -73,6 +77,8 @@ __all__ = [
     "ring_shift",
     "stream_increment_",
     "stream_increment_plain_",
+    "stream_increment_verify_",
+    "stream_increment_verify_plain_",
     "verify_stats",
     "verify_stats_plain",
 ]

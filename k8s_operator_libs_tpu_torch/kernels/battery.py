@@ -1,6 +1,9 @@
 """Wrappers of the battery's two CUDA kernels, with their plain versions.
 
 - ``stream_increment_`` (K1): ``x += 1`` in place, one launch per pass.
+- ``stream_increment_verify_`` (K1's second entry): one such pass that
+  also returns ``verify_stats`` of the updated ``x``, so a chain's check
+  does not read the buffer again.
 - ``verify_stats`` (K2): ``(min(x), max(x), max|x - center|)`` as an fp32
   tensor of 3 on ``x``'s device, NaN-propagating.
 
@@ -19,8 +22,12 @@ import torch
 from k8s_operator_libs_tpu_torch.kernels.build import check, load_library
 
 # 8 blocks of 256 threads (the library's block size) fill an SM's 2048
-# thread slots; the grid-stride loops cover the rest of the array.
+# thread slots; K2's grid-stride loops cover the rest of the array.
 BLOCKS_PER_SM = 8
+# K1's tiles, 16-byte vectors a thread (kStreamVecs and kVerifyVecs in
+# csrc/battery_kernels.cu): one tile a block.
+STREAM_VECS = 1
+VERIFY_VECS = 4
 
 _VERIFY_ENTRY = {
     torch.float32: "battery_verify_stats_f32",
@@ -50,6 +57,12 @@ def grid_blocks(lib, device: torch.device, vectors: int) -> int:
     return max(1, min(sms * BLOCKS_PER_SM, needed))
 
 
+def tile_blocks(lib, n: int, vecs: int) -> int:
+    """K1's grid over ``n`` fp32: one block a tile of ``vecs`` vectors a
+    thread."""
+    return max(1, -(-n // (4 * vecs * lib.battery_threads_per_block())))
+
+
 def stream_increment_plain_(x: torch.Tensor) -> torch.Tensor:
     """Plain version of K1."""
     return x.add_(1.0)
@@ -67,7 +80,7 @@ def stream_increment_(x: torch.Tensor) -> torch.Tensor:
         x.data_ptr(),
         n,
         x.device.index,
-        grid_blocks(lib, x.device, -(-n // 4)),
+        tile_blocks(lib, n, STREAM_VECS),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     check(lib, code, "stream_increment_")
@@ -76,6 +89,45 @@ def stream_increment_(x: torch.Tensor) -> torch.Tensor:
 
 
 stream_increment_.launches = 0
+
+
+def stream_increment_verify_plain_(x: torch.Tensor,
+                                   center: float) -> torch.Tensor:
+    """Plain version of ``stream_increment_verify_``."""
+    return verify_stats_plain(stream_increment_plain_(x), center)
+
+
+def stream_increment_verify_(x: torch.Tensor, center: float) -> torch.Tensor:
+    """One K1 pass ``x += 1.0`` in place over a contiguous fp32 tensor,
+    returning what ``verify_stats(x, center)`` returns on the updated
+    ``x`` (fp32[3] on ``x``'s device; a NaN anywhere makes all three
+    NaN) without reading ``x`` again.  Counts as a K1 launch too."""
+    _check_input(x, (torch.float32,), "stream_increment_verify_")
+    if x.device.type == "cpu":
+        return stream_increment_verify_plain_(x, center)
+    lib = load_library()
+    n = x.numel()
+    blocks = tile_blocks(lib, n, VERIFY_VECS)
+    # out[0:3], then the blocks' partials and their merges.
+    scratch = torch.empty(3 + lib.battery_verify_scratch_floats(blocks),
+                          dtype=torch.float32, device=x.device)
+    code = lib.battery_stream_increment_verify_f32(
+        x.data_ptr(),
+        n,
+        float(center),
+        scratch.data_ptr() + 12,
+        scratch.data_ptr(),
+        x.device.index,
+        blocks,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    check(lib, code, "stream_increment_verify_")
+    stream_increment_.launches += 1
+    stream_increment_verify_.launches += 1
+    return scratch[:3]
+
+
+stream_increment_verify_.launches = 0
 
 
 def verify_stats_plain(x: torch.Tensor, center: float) -> torch.Tensor:

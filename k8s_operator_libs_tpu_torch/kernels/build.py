@@ -110,9 +110,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ll = ctypes.c_longlong
     lib.battery_threads_per_block.argtypes = []
     lib.battery_threads_per_block.restype = i
+    lib.battery_verify_scratch_floats.argtypes = [i]
+    lib.battery_verify_scratch_floats.restype = i
     lib.battery_stream_increment.argtypes = [vp, sz, i, i, vp]
     lib.battery_stream_increment.restype = i
-    for name in ("battery_verify_stats_f32", "battery_verify_stats_bf16"):
+    for name in ("battery_verify_stats_f32", "battery_verify_stats_bf16",
+                 "battery_stream_increment_verify_f32"):
         fn = getattr(lib, name)
         fn.argtypes = [vp, sz, f, vp, vp, i, i, vp]
         fn.restype = i
@@ -140,9 +143,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ]
     lib.collective_peer_reduce.restype = i
     lib.collective_peer_gather.argtypes = [
-        ctypes.POINTER(vp), ctypes.POINTER(sz), ctypes.POINTER(sz), i, sz,
-        sz, vp, i, vp,  # srcs, offs, lens, k, rows, pitch, dst, device,
-        # stream
+        vp, i, sz, sz, vp, i, vp,  # packed src[k], off[k], len[k] as
+        # uint64; k, rows, pitch, dst, device, stream
     ]
     lib.collective_peer_gather.restype = i
     lib.collective_plan_create.argtypes = [

@@ -78,6 +78,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import operator
 import struct
 import threading
 from operator import attrgetter
@@ -193,23 +194,62 @@ def peer_reduce(dst, srcs, off: int = 0, divisor: float = 1.0):
 peer_reduce.launches = 0
 
 
-def _check_gather(dst, pieces, offsets, rows: int, pitch: int) -> None:
+def _check_gather(dst, pieces, offsets, rows: int, pitch: int):
+    """Check a gather; returns the pieces' widths (elements a row) and
+    their CUDA devices other than ``dst``'s (none on the CPU), whose peer
+    access the launch needs.  The checks are a few C-level passes over
+    the pieces (the standalone launch's host time is mostly this); on a
+    fault, ``_gather_fault`` takes a second look and names it."""
     if not isinstance(dst, torch.Tensor):
         raise TypeError(f"peer_gather: want a tensor, got {type(dst).__name__}")
-    _check_tensor(dst, "peer_gather: dst", dst.dtype)
-    if not 1 <= len(pieces) <= MAX_SOURCES:
+    k = len(pieces)
+    if not 1 <= k <= MAX_SOURCES:
         raise ValueError(
-            f"peer_gather: want 1 to {MAX_SOURCES} pieces, got {len(pieces)}"
+            f"peer_gather: want 1 to {MAX_SOURCES} pieces, got {k}"
         )
-    if len(offsets) != len(pieces):
-        raise ValueError(
-            f"peer_gather: {len(pieces)} pieces, {len(offsets)} offsets"
-        )
+    if len(offsets) != k:
+        raise ValueError(f"peer_gather: {k} pieces, {len(offsets)} offsets")
     if rows < 1:
         raise ValueError(f"peer_gather: want at least one row, got {rows}")
+    both = [dst, *pieces]
+    try:
+        devices = list(map(torch.Tensor.get_device, both))
+        numels = list(map(torch.Tensor.numel, both))
+        fine = (list(map(_DTYPE, both)).count(dst.dtype) == k + 1
+                and all(map(torch.Tensor.is_contiguous, both))
+                and min(numels) > 0
+                and (min(devices) >= 0 if devices[0] >= 0
+                     else all(map(_IS_CPU, both))))
+    except TypeError:  # a piece that is not a tensor
+        fine = False
+    if fine:
+        sizes = numels[1:]
+        widths = sizes if rows == 1 else [n // rows for n in sizes]
+        ends = list(map(operator.add, offsets, widths))
+        if all(map(operator.le, ends, offsets[1:])):  # in order, disjoint
+            first, last = offsets[0], ends[-1]
+        else:
+            spans = sorted(zip(offsets, ends))
+            first, last = spans[0][0], max(ends)
+            fine = all(end <= start for (_, end), (start, _)
+                       in zip(spans, spans[1:]))
+        fine = (fine and rows * sum(widths) == sum(sizes) and first >= 0
+                and (rows == 1 or last <= pitch)
+                and (rows - 1) * pitch + last <= numels[0])
+    if not fine:
+        _gather_fault(dst, pieces, offsets, rows, pitch)
+    home = devices[0]
+    return widths, [d for d in devices[1:] if d != home] if home >= 0 else []
+
+
+def _gather_fault(dst, pieces, offsets, rows: int, pitch: int) -> None:
+    """Raise naming the fault of a gather that failed its checks."""
+    dtype = dst.dtype
+    _check_tensor(dst, "peer_gather: dst", dtype)
+    size = dst.numel()
     spans = []
     for i, (p, off) in enumerate(zip(pieces, offsets)):
-        _check_tensor(p, f"peer_gather: piece {i}", dst.dtype)
+        _check_tensor(p, f"peer_gather: piece {i}", dtype)
         if p.device.type != dst.device.type:
             raise ValueError(
                 f"peer_gather: piece {i} is on {p.device}, dst on {dst.device}"
@@ -225,16 +265,17 @@ def _check_gather(dst, pieces, offsets, rows: int, pitch: int) -> None:
                 f"peer_gather: piece {i}'s rows at {off} + {width} overrun "
                 f"the pitch {pitch}"
             )
-        if off < 0 or (rows - 1) * pitch + off + width > dst.numel():
+        if off < 0 or (rows - 1) * pitch + off + width > size:
             raise ValueError(
                 f"peer_gather: piece {i} at {off} + {width} in {rows} rows "
-                f"overruns dst of {dst.numel()} elements"
+                f"overruns dst of {size} elements"
             )
         spans.append((off, off + width))
     spans.sort()
     for (_, end), (start, _) in zip(spans, spans[1:]):
         if start < end:
             raise ValueError("peer_gather: the pieces' ranges overlap")
+    raise AssertionError("peer_gather: failed a check none names")
 
 
 def peer_gather_plain(dst, pieces, offsets, rows: int = 1, pitch: int = 0):
@@ -261,22 +302,24 @@ def peer_gather(dst, pieces, offsets, rows: int = 1, pitch: int = 0):
     pitch).  On CUDA it launches one byte copy on the current stream of
     ``dst``'s device; the caller orders the pieces' producers (on other
     devices' streams) before it."""
-    pieces, offsets = list(pieces), [int(o) for o in offsets]
+    pieces, offsets = list(pieces), list(map(int, offsets))
     rows, pitch = int(rows), int(pitch)
-    _check_gather(dst, pieces, offsets, rows, pitch)
+    widths, peers = _check_gather(dst, pieces, offsets, rows, pitch)
     if dst.device.type == "cpu":
         return peer_gather_plain(dst, pieces, offsets, rows, pitch)
-    for p in pieces:
-        enable_peer_access(dst.device.index, p.device.index)
+    device = dst.device.index
+    for peer in peers:
+        enable_peer_access(device, peer)
     esz = dst.element_size()
-    k = len(pieces)
     lib = load_library()
+    # src[k], off[k], len[k] as uint64, the last two in bytes.
+    packed = struct.pack(
+        f"={3 * len(pieces)}Q", *map(torch.Tensor.data_ptr, pieces),
+        *[o * esz for o in offsets], *[w * esz for w in widths],
+    )
     code = lib.collective_peer_gather(
-        (ctypes.c_void_p * k)(*(p.data_ptr() for p in pieces)),
-        (ctypes.c_size_t * k)(*(o * esz for o in offsets)),
-        (ctypes.c_size_t * k)(*(p.numel() // rows * esz for p in pieces)),
-        k, rows, pitch * esz, dst.data_ptr(), dst.device.index,
-        torch.cuda.current_stream(dst.device).cuda_stream,
+        packed, len(pieces), rows, pitch * esz, dst.data_ptr(), device,
+        torch._C._cuda_getCurrentRawStream(device),
     )
     check(lib, code, "peer_gather")
     peer_gather.launches += 1

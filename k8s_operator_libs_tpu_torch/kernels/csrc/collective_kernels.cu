@@ -57,13 +57,27 @@
 //   dimension).
 //   Bound: memory (or the NVLink that carries a peer's bytes); it reads
 //   and writes rows * sum(len_s) bytes and computes nothing.
-//   Design: grid-stride loops over 16-byte vectors and over the bytes
-//   left at each row's ends.  A source takes the vector path when it and
-//   its destination sit at one offset past a 16-byte boundary and, with
-//   several rows, len_s and pitch are multiples of 16 (so every row
-//   shares that offset); a byte head brings each row to the boundary and
-//   a byte tail finishes it.  Otherwise the source is copied byte by
-//   byte.  Simple, not tuned.
+//   Design: the grid is split over the pieces.  The host gives piece s a
+//   run of blocks in proportion to its bytes (first[s] .. first[s+1],
+//   from the plan's shape alone: lengths and rows, never pointers, so a
+//   graph node keeps a valid grid when it is repointed); a block finds
+//   its piece with k - 1 compares, and no thread walks every piece.
+//   Within a piece, the piece's threads walk the rows x vectors of its
+//   copy as one flat range: each thread divides its first index into
+//   (row, column) once (none for one row), and steps by the piece's
+//   thread count with an add and a compare, so no division happens per
+//   vector.  Each thread issues kGatherInFlight loads before their
+//   stores; the stores carry the evict-first hint (st.global.cs), so the
+//   output does not push the pieces out of the L2.  A piece takes the
+//   vector path when it and its destination sit at one offset past a
+//   16-byte boundary and, with several rows, len_s and pitch are
+//   multiples of 16 (so every row shares that offset); the bytes before
+//   the boundary and after the last vector of each row are copied as
+//   bytes, in the same way.  Otherwise the piece is copied byte by byte.
+//   One row and several rows take two instances of the kernel (chosen
+//   by the shape), so a one-row copy keeps the registers of its simpler
+//   loop and 8 blocks an SM.  Loads are plain global loads (no read-only
+//   cache hint), which are valid on a peer's memory.
 //
 // The round plan (collective_plan_*): one shape of collective (its
 // members' devices and ranges) as a CUDA graph of K4 and K5 nodes, so a
@@ -107,6 +121,8 @@ constexpr int kThreads = 256;
 constexpr int kMaxSources = 8;
 // Blocks per SM for the grid-stride loops: 8 x 256 threads fill an SM.
 constexpr int kBlocksPerSM = 8;
+// 16-byte vectors (or bytes) each K5 thread loads before storing them.
+constexpr int kGatherInFlight = 4;
 // Instantiated graphs a round plan keeps (see the plan's notes above).
 constexpr int kGraphs = 2;
 
@@ -162,50 +178,114 @@ struct Pieces {
   const unsigned char* src[kMaxSources];
   size_t off[kMaxSources];  // destination offset of the first row, bytes
   size_t len[kMaxSources];  // bytes a row
+  // Piece s runs on blocks [first[s], first[s + 1]).
+  int first[kMaxSources + 1];
 };
 
+// Copies rows x cols units of T, row r from src + r * spitch to dst + r *
+// dpitch (bytes), with thread lt of nt; kGatherInFlight loads a thread
+// are issued before their stores.  kRows false: one row.
+template <typename T, bool kRows>
+__device__ __forceinline__ void copy_rows(const unsigned char* src,
+                                          size_t spitch, unsigned char* dst,
+                                          size_t dpitch, size_t rows,
+                                          size_t cols, size_t lt, size_t nt) {
+  if (cols == 0) return;
+  if (!kRows) {  // one row: no division at all
+    for (size_t c = lt; c < cols; c += kGatherInFlight * nt) {
+      T v[kGatherInFlight];
+#pragma unroll
+      for (int u = 0; u < kGatherInFlight; ++u) {
+        if (c + u * nt < cols) {
+          v[u] = reinterpret_cast<const T*>(src)[c + u * nt];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kGatherInFlight; ++u) {
+        if (c + u * nt < cols) {
+          __stcs(reinterpret_cast<T*>(dst) + c + u * nt, v[u]);
+        }
+      }
+    }
+    return;
+  }
+  // The thread's (row, column), and the step of nt units as (dr, dc):
+  // divided once, in 32 bits where the numbers fit.
+  size_t r, c, dr, dc;
+  if (cols <= UINT32_MAX && nt <= UINT32_MAX) {
+    const uint32_t l32 = static_cast<uint32_t>(lt);
+    const uint32_t n32 = static_cast<uint32_t>(nt);
+    const uint32_t c32 = static_cast<uint32_t>(cols);
+    r = l32 / c32;
+    c = l32 - static_cast<uint32_t>(r) * c32;
+    dr = n32 / c32;
+    dc = n32 - static_cast<uint32_t>(dr) * c32;
+  } else {
+    r = lt / cols;
+    c = lt - r * cols;
+    dr = nt / cols;
+    dc = nt - dr * cols;
+  }
+  while (r < rows) {
+    T v[kGatherInFlight];
+    size_t at_src[kGatherInFlight];
+    size_t at_dst[kGatherInFlight];
+    unsigned live = 0;
+#pragma unroll
+    for (int u = 0; u < kGatherInFlight; ++u) {
+      if (r < rows) {
+        live |= 1u << u;
+        at_src[u] = r * spitch + c * sizeof(T);
+        at_dst[u] = r * dpitch + c * sizeof(T);
+        v[u] = *reinterpret_cast<const T*>(src + at_src[u]);
+      }
+      c += dc;
+      r += dr;
+      if (c >= cols) {
+        c -= cols;
+        ++r;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kGatherInFlight; ++u) {
+      if (live >> u & 1u) __stcs(reinterpret_cast<T*>(dst + at_dst[u]), v[u]);
+    }
+  }
+}
+
+// kRows: rows > 1.  One row takes an instance of its own, whose fewer
+// registers keep 8 blocks on an SM.
+template <bool kRows>
 __global__ void __launch_bounds__(kThreads)
     peer_gather_kernel(Pieces p, int k, size_t rows, size_t pitch,
                        unsigned char* dst) {
-  const size_t tid = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
-  for (int s = 0; s < k; ++s) {
-    const unsigned char* src = p.src[s];
-    unsigned char* out = dst + p.off[s];
-    const size_t len = p.len[s];
-    const uintptr_t mis = reinterpret_cast<uintptr_t>(src) & 15;
-    size_t head = len;  // misaligned: every byte one at a time
-    size_t nvec = 0;
-    if ((reinterpret_cast<uintptr_t>(out) & 15) == mis &&
-        (rows == 1 || (len % 16 == 0 && pitch % 16 == 0))) {
-      head = (16 - mis) & 15;
-      if (head > len) head = len;
-      nvec = (len - head) / 16;
-    }
-    const size_t edge = len - 16 * nvec;  // head + tail bytes a row
-    if (rows == 1) {
-      for (size_t i = tid; i < head; i += stride) out[i] = src[i];
-      const uint4* vs = reinterpret_cast<const uint4*>(src + head);
-      uint4* vd = reinterpret_cast<uint4*>(out + head);
-      for (size_t i = tid; i < nvec; i += stride) vd[i] = vs[i];
-      for (size_t i = head + 16 * nvec + tid; i < len; i += stride) {
-        out[i] = src[i];
-      }
-      continue;
-    }
-    for (size_t i = tid; i < rows * nvec; i += stride) {
-      const size_t r = i / nvec;
-      const size_t c = i - r * nvec;
-      reinterpret_cast<uint4*>(out + r * pitch + head)[c] =
-          reinterpret_cast<const uint4*>(src + r * len + head)[c];
-    }
-    for (size_t i = tid; i < rows * edge; i += stride) {
-      const size_t r = i / edge;
-      const size_t c = i - r * edge;
-      const size_t b = c < head ? c : c + 16 * nvec;
-      out[r * pitch + b] = src[r * len + b];
-    }
+  int s = 0;
+#pragma unroll
+  for (int t = 1; t < kMaxSources; ++t) {
+    s += t < k && static_cast<int>(blockIdx.x) >= p.first[t];
   }
+  const size_t lt =
+      static_cast<size_t>(blockIdx.x - p.first[s]) * kThreads + threadIdx.x;
+  const size_t nt =
+      static_cast<size_t>(p.first[s + 1] - p.first[s]) * kThreads;
+  const unsigned char* src = p.src[s];
+  unsigned char* out = dst + p.off[s];
+  const size_t len = p.len[s];
+  const uintptr_t mis = reinterpret_cast<uintptr_t>(src) & 15;
+  if ((reinterpret_cast<uintptr_t>(out) & 15) != mis ||
+      (kRows && (len % 16 != 0 || pitch % 16 != 0))) {
+    copy_rows<unsigned char, kRows>(src, len, out, pitch, rows, len, lt, nt);
+    return;
+  }
+  size_t head = (16 - mis) & 15;
+  if (head > len) head = len;
+  const size_t nvec = (len - head) / 16;
+  const size_t body = head + 16 * nvec;
+  copy_rows<uint4, kRows>(src + head, len, out + head, pitch, rows, nvec,
+                          lt, nt);
+  copy_rows<unsigned char, kRows>(src, len, out, pitch, rows, head, lt, nt);
+  copy_rows<unsigned char, kRows>(src + body, len, out + body, pitch, rows,
+                                  len - body, lt, nt);
 }
 
 // The grid of a launch: enough blocks for `items` threads, at most
@@ -310,7 +390,8 @@ struct GatherArgs {
     params[3] = &pitch;
     params[4] = &dst;
     cudaKernelNodeParams np = {};
-    np.func = reinterpret_cast<void*>(&peer_gather_kernel);
+    np.func = rows > 1 ? reinterpret_cast<void*>(&peer_gather_kernel<true>)
+                       : reinterpret_cast<void*>(&peer_gather_kernel<false>);
     np.gridDim = dim3(blocks);
     np.blockDim = dim3(kThreads);
     np.kernelParams = params;
@@ -318,6 +399,10 @@ struct GatherArgs {
   }
 };
 
+// The launch of pieces s < k: srcs[s] lands at byte offs[s] of dst, in
+// rows of lens[s] bytes pitch apart.  The grid depends on k, lens and
+// rows alone: a block for every kThreads 16-byte vectors of a piece,
+// scaled down to kBlocksPerSM a multiprocessor in proportion.
 GatherArgs gather_args(const void* const* srcs, const size_t* offs,
                        const size_t* lens, int k, size_t rows, size_t pitch,
                        void* dst, int sms) {
@@ -326,14 +411,24 @@ GatherArgs gather_args(const void* const* srcs, const size_t* offs,
   a.rows = rows;
   a.pitch = pitch;
   a.dst = static_cast<unsigned char*>(dst);
-  size_t most = 0;
+  size_t want[kMaxSources];
+  size_t total = 0;
   for (int s = 0; s < k; ++s) {
     a.p.src[s] = static_cast<const unsigned char*>(srcs[s]);
     a.p.off[s] = offs[s];
     a.p.len[s] = lens[s];
-    if (lens[s] > most) most = lens[s];
+    want[s] = (rows * ((lens[s] + 15) / 16) + kThreads - 1) / kThreads;
+    if (want[s] < 1) want[s] = 1;
+    total += want[s];
   }
-  a.blocks = grid_for(rows * ((most + 15) / 16), sms);
+  const size_t cap = static_cast<size_t>(sms) * kBlocksPerSM;
+  for (int s = 0; s < k; ++s) {
+    size_t b = want[s];
+    if (total > cap) b = b * cap / total;
+    if (b < 1) b = 1;
+    a.p.first[s + 1] = a.p.first[s] + static_cast<int>(b);
+  }
+  a.blocks = a.p.first[k];
   return a;
 }
 
@@ -572,8 +667,9 @@ int collective_peer_reduce(const void* const* srcs, int k, size_t off,
   return static_cast<int>(err);
 }
 
-int collective_peer_gather(const void* const* srcs, const size_t* offs,
-                           const size_t* lens, int k, size_t rows,
+// ptrs holds src[k], off[k] and len[k] as uint64 (pointers, then byte
+// offsets into dst, then bytes a row).
+int collective_peer_gather(const uint64_t* ptrs, int k, size_t rows,
                            size_t pitch, void* dst, int device,
                            void* stream) {
   if (k < 1 || k > kMaxSources || rows < 1) {
@@ -584,6 +680,14 @@ int collective_peer_gather(const void* const* srcs, const size_t* offs,
   cudaError_t err;
   const int sms = sm_count(device, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const void* srcs[kMaxSources];
+  size_t offs[kMaxSources];
+  size_t lens[kMaxSources];
+  for (int s = 0; s < k; ++s) {
+    srcs[s] = reinterpret_cast<const void*>(ptrs[s]);
+    offs[s] = ptrs[k + s];
+    lens[s] = ptrs[2 * k + s];
+  }
   GatherArgs a = gather_args(srcs, offs, lens, k, rows, pitch, dst, sms);
   cudaKernelNodeParams np = a.node();
   err = cudaLaunchKernel(np.func, np.gridDim, np.blockDim, np.kernelParams,

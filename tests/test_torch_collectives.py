@@ -539,6 +539,29 @@ def test_peer_gather_checks_its_inputs():
         collectives.peer_gather(dst, [torch.zeros(4)], [0, 4])
 
 
+@pytest.mark.parametrize("offsets, fault", [
+    ([8, 0, 4], None),  # out of order, disjoint
+    ([0, 8, 4], None),
+    ([8, 0, 2], "overlap"),  # out of order, overlapping
+    ([4, 1, 9], "overlap"),
+    ([12, 0, 4], "overruns"),
+    ([8, -1, 4], "overruns"),
+])
+def test_peer_gather_checks_pieces_in_any_order(offsets, fault):
+    """The checks hold for pieces in any order of their offsets: the
+    quick pass over pieces in order, and the sort otherwise, agree with
+    the fault each names."""
+    pieces = [torch.full((4,), float(i + 1)) for i in range(3)]
+    dst = torch.zeros(15)
+    if fault:
+        with pytest.raises(ValueError, match=fault):
+            collectives.peer_gather(dst, pieces, offsets)
+        return
+    collectives.peer_gather(dst, pieces, offsets)
+    for i, off in enumerate(offsets):
+        assert dst[off:off + 4].tolist() == [float(i + 1)] * 4
+
+
 @pytest.mark.parametrize("k,rows,width,gap", [(1, 3, 4, 0), (2, 5, 3, 1),
                                                 (4, 8, 16, 0), (3, 2, 7, 5)])
 def test_peer_gather_plain_interleaves_rows(k, rows, width, gap):

@@ -1,7 +1,8 @@
 """The port's kernels: plain versions against numpy, wrapper checks,
 and (on a CUDA card only) each kernel against its plain version.
 
-K1 and K2 are held exactly: an fp32 add, a min, a max and an absolute
+K1, its verifying pass ``stream_increment_verify_`` and K2 are held
+exactly: an fp32 add, a min, a max and an absolute
 difference round the same way in numpy and PyTorch, and the kernels
 compute the same operations.  K3 (``block_attention``) is held on the
 card within the tolerances ``chip_smoke.py`` states for it: m 1e-4
@@ -45,9 +46,12 @@ from k8s_operator_libs_tpu_torch.kernels import (  # noqa: E402
     ring_shift,
     stream_increment_,
     stream_increment_plain_,
+    stream_increment_verify_,
+    stream_increment_verify_plain_,
     verify_stats,
     verify_stats_plain,
 )
+from k8s_operator_libs_tpu_torch.kernels import battery  # noqa: E402
 
 SIZES = [1, 7, 4096, 1_000_003]
 # K3's card cases: (B, Sq, Sk, H, D), q_offset, k_offset, causal.
@@ -108,6 +112,39 @@ def test_stream_increment_cpu_matches_numpy(n):
     assert launch_counts() == before
 
 
+@pytest.mark.parametrize("nan_at", [None, "first", "last"])
+@pytest.mark.parametrize("center", [0.0, 0.5])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", SIZES)
+def test_stream_increment_verify_cpu_matches_numpy(n, offset, center,
+                                                   nan_at):
+    host = np.random.default_rng(n).standard_normal(n).astype(np.float32)
+    if nan_at is not None:
+        host[0 if nan_at == "first" else -1] = np.nan
+    # An unaligned view when offset is 1, as the card's scalar head sees.
+    x = torch.from_numpy(np.concatenate([np.zeros(offset, np.float32),
+                                         host]))[offset:]
+    before = launch_counts()
+    got = stream_increment_verify_(x, center)
+    bumped = host + np.float32(1)
+    _same(x.numpy(), bumped)  # in place
+    assert got.dtype == torch.float32 and got.shape == (3,)
+    _same(got.numpy(), _numpy_stats(bumped, center))
+    if nan_at is not None:
+        assert np.isnan(got.numpy()).all()
+    # The CPU path is the plain version: no kernel launch is counted.
+    assert launch_counts() == before
+
+
+def test_stream_increment_verify_plain_is_a_pass_then_the_check():
+    x = torch.zeros(1_000_003)
+    for _ in range(7):
+        stream_increment_plain_(x)
+    got = stream_increment_verify_plain_(x, 0.0)
+    assert got.tolist() == [8.0, 8.0, 8.0]
+    assert torch.equal(got, verify_stats_plain(x, 0.0))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n", SIZES)
 @pytest.mark.parametrize("center", [0.0, 0.5])
@@ -148,6 +185,10 @@ def test_stream_increment_plain_counts_passes():
         (stream_increment_, lambda: torch.zeros(8, dtype=torch.bfloat16)),
         (verify_stats, lambda: torch.zeros(8, dtype=torch.float16)),
         (verify_stats, lambda: torch.zeros(8, dtype=torch.int32)),
+        (stream_increment_verify_,
+         lambda: torch.zeros(8, dtype=torch.float64)),
+        (stream_increment_verify_,
+         lambda: torch.zeros(8, dtype=torch.bfloat16)),
     ],
 )
 def test_wrappers_reject_wrong_dtype(fn, bad):
@@ -164,13 +205,16 @@ def test_wrappers_reject_wrong_dtype(fn, bad):
     ],
     ids=["strided", "transposed", "empty"],
 )
-@pytest.mark.parametrize("which", ["stream_increment_", "verify_stats"])
+@pytest.mark.parametrize("which", ["stream_increment_", "verify_stats",
+                                   "stream_increment_verify_"])
 def test_wrappers_reject_noncontiguous_and_empty(bad, which):
     with pytest.raises(ValueError):
         if which == "stream_increment_":
             stream_increment_(bad())
-        else:
+        elif which == "verify_stats":
             verify_stats(bad(), 0.0)
+        else:
+            stream_increment_verify_(bad(), 0.0)
 
 
 def test_build_targets_sm90a_and_binds_every_entry_point():
@@ -181,6 +225,8 @@ def test_build_targets_sm90a_and_binds_every_entry_point():
     src = "".join(p.read_text() for p in build.SOURCES)
     for symbol in (
         "battery_stream_increment",
+        "battery_stream_increment_verify_f32",
+        "battery_verify_scratch_floats",
         "battery_verify_stats_f32",
         "battery_verify_stats_bf16",
         "battery_error_string",
@@ -194,10 +240,13 @@ def test_build_targets_sm90a_and_binds_every_entry_point():
         "collective_plan_nodes",
     ):
         assert f"{symbol}(" in src
-    # K4's cap on sources has one value on both sides of the binding.
+    # K4's cap on sources has one value on both sides of the binding, and
+    # so have K1's tiles.
     assert (
         f"constexpr int kMaxSources = {collectives.MAX_SOURCES};" in src
     )
+    assert f"constexpr int kStreamVecs = {battery.STREAM_VECS};" in src
+    assert f"constexpr int kVerifyVecs = {battery.VERIFY_VECS};" in src
     # The build writes into a directory git ignores.
     ignored = (build.BUILD_DIR.parents[1] / ".gitignore").read_text()
     assert "build/torch_kernels/" in ignored.split()
@@ -226,6 +275,59 @@ def test_kernels_match_plain_versions_on_the_card():
     c = torch.full((4096, 4096), 0.5, dtype=torch.bfloat16, device=dev)
     c[5, 7] = float("nan")
     assert torch.isnan(verify_stats(c, 0.5)).all()
+
+
+@pytest.mark.cuda
+def test_stream_increment_verify_matches_plain_on_the_card():
+    """K1 and its verifying pass against their plain versions, exactly,
+    at 1 GiB, at an odd length aligned and not, and at 5 elements past a
+    12-byte offset; a NaN at the first or last element makes all three
+    stats NaN; each verifying pass counts as one K1 launch and no K2
+    launch, and the battery body launches K2 once (on C)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    from k8s_operator_libs_tpu_torch.health import fused
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    for n, off in [(1 << 28, 0), (1_000_003, 0), (1_000_003, 1), (5, 3)]:
+        x = torch.randn(n + off, device=dev, generator=gen)[off:]
+        y = x.clone()
+        k1, k1v, k2 = (stream_increment_.launches,
+                       stream_increment_verify_.launches,
+                       verify_stats.launches)
+        stream_increment_(x)
+        stream_increment_plain_(y)
+        for center in (0.0, 0.5):
+            got = stream_increment_verify_(x, center)
+            want = stream_increment_verify_plain_(y, center)
+            torch.cuda.synchronize()
+            assert torch.equal(x, y)
+            torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                       equal_nan=True)
+        for where in (0, n - 1):
+            x[where] = y[where] = float("nan")
+            got = stream_increment_verify_(x, 0.5)
+            want = stream_increment_verify_plain_(y, 0.5)
+            torch.cuda.synchronize()
+            assert torch.isnan(got).all() and torch.isnan(want).all()
+            assert torch.equal(x.isnan(), y.isnan())
+            x[where] = y[where] = 0.0
+        assert stream_increment_.launches == k1 + 5
+        assert stream_increment_verify_.launches == k1v + 4
+        assert verify_stats.launches == k2
+        del x, y
+    a = torch.full((256, 256), 0.5, dtype=torch.bfloat16, device=dev)
+    b = torch.full((256, 256), 1.0 / 256, dtype=torch.bfloat16, device=dev)
+    x = torch.zeros(1 << 18, device=dev)
+    k1, k1v, k2 = (stream_increment_.launches,
+                   stream_increment_verify_.launches, verify_stats.launches)
+    row = fused._battery_body(a, b, x)
+    assert row.tolist() == [0.5, 0.5, 0.0, 8.0, 8.0, 8.0]
+    assert stream_increment_.launches == k1 + fused.HBM_CHAIN_ITERS
+    assert stream_increment_verify_.launches == k1v + 1
+    assert verify_stats.launches == k2 + 1
 
 
 @pytest.mark.cuda
@@ -425,6 +527,60 @@ def test_peer_gather_and_rounds_match_plain_versions_on_the_card():
         assert start() is start()
     torch.cuda.synchronize()
     assert all(bool((t == 4.5).all()) for t in s)
+
+
+@pytest.mark.cuda
+def test_peer_gather_split_grid_matches_plain_on_the_card():
+    """K5 byte for byte over 2, 3, 4, 5 and 8 pieces (aligned, ragged,
+    unaligned alike with dst and apart), rows a pitch apart at the
+    sharded canary's gathers, rows whose length is not a multiple of 16
+    bytes, rows that share an offset past a 16-byte boundary (byte head
+    and tail on every row), and bf16; one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+
+    def gather(dtype, k, rows, width, skew, offsets, pitch, size):
+        pieces = [torch.randn(rows * width + skew, device=dev,
+                              generator=gen).to(dtype)[skew:]
+                  for _ in range(k)]
+        dst = torch.randn(size, device=dev, generator=gen).to(dtype)
+        want = dst.clone()
+        peer_gather(dst, pieces, offsets, rows, pitch)
+        peer_gather_plain(want, pieces, offsets, rows, pitch)
+        torch.cuda.synchronize()
+        assert torch.equal(dst.view(torch.uint8), want.view(torch.uint8))
+
+    before = peer_gather.launches
+    cases = 0
+    for k in (2, 3, 4, 5, 8):
+        for total, skew, gap in ((1 << 20, 0, 0), (1_000_003, 1, 1),
+                                 (1_000_003, 3, 2), (37, 2, 1)):
+            n = total // (k + 1)
+            skip = k // 2  # the launching member's own range, kept
+            offsets = [(i + (i >= skip)) * (n + gap) + gap for i in range(k)]
+            gather(torch.float32, k, 1, n, skew, offsets, 0,
+                   (k + 1) * (n + gap) + gap)
+            cases += 1
+    # (dtype, k, rows, width, skew, gap): the canary's gathers along -1
+    # (tp 4 and 2), 67 fp32 (268 bytes) and 5 fp32 (20 bytes) rows, 64
+    # fp32 rows 4 bytes past a boundary with a pitch of 16-byte multiples,
+    # and bf16 rows of 6 bytes.
+    for dtype, k, rows, width, skew, gap in (
+        (torch.float32, 4, 16 * 512, 256, 0, 0),
+        (torch.float32, 2, 16 * 512, 512, 0, 0),
+        (torch.float32, 3, 1001, 67, 1, 1),
+        (torch.float32, 5, 77, 5, 0, 0),
+        (torch.float32, 3, 129, 64, 1, 4),
+        (torch.bfloat16, 8, 7, 3, 1, 2),
+    ):
+        pitch = k * width + gap
+        offsets = [i * width + (skew if gap == 4 else gap) for i in range(k)]
+        gather(dtype, k, rows, width, skew, offsets, pitch, rows * pitch)
+        cases += 1
+    assert peer_gather.launches == before + cases
 
 
 @pytest.mark.cuda

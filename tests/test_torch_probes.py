@@ -24,6 +24,7 @@ import jax.numpy as jnp  # noqa: E402
 from k8s_operator_libs_tpu.health import fused as jfused  # noqa: E402
 from k8s_operator_libs_tpu.health import probes as jprobes  # noqa: E402
 from k8s_operator_libs_tpu_torch import hw  # noqa: E402
+from k8s_operator_libs_tpu_torch import kernels  # noqa: E402
 from k8s_operator_libs_tpu_torch.fleet import profiles  # noqa: E402
 from k8s_operator_libs_tpu_torch.health import fused as tfused  # noqa: E402
 from k8s_operator_libs_tpu_torch.health import probes as tprobes  # noqa: E402
@@ -144,6 +145,62 @@ def test_fused_battery_details_and_cache(jax_dev):
     stats = tfused.battery_stats()
     assert (stats["compile_cache_misses"], stats["compile_cache_hits"]) == (1, 1)
     assert stats["cached_programs"] == 1.0
+
+
+@pytest.mark.parametrize("nan_at", [None, 0, -1])
+@pytest.mark.parametrize("center", [0.0, 0.5])
+@pytest.mark.parametrize("n, offset", [(1, 0), (7, 1), (4097, 0),
+                                       (1_000_003, 1)])
+def test_stream_increment_verify_matches_jax(n, offset, center, nan_at):
+    """The fused battery's last stream pass and its check against the JAX
+    package's `x + 1` then `jnp.min`, `jnp.max` and `jnp.max(jnp.abs(x -
+    c))` on the same seed-made input, exactly, NaN included."""
+    host = np.random.default_rng(n).standard_normal(n).astype(np.float32)
+    if nan_at is not None:
+        host[nan_at] = np.nan
+    xj = jnp.asarray(host) + jnp.float32(1.0)
+    want = np.array([jnp.min(xj), jnp.max(xj),
+                     jnp.max(jnp.abs(xj - jnp.float32(center)))],
+                    dtype=np.float32)
+    x = torch.from_numpy(np.concatenate([np.zeros(offset, np.float32),
+                                         host]))[offset:]
+    got = kernels.stream_increment_verify_(x, center)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(x.numpy(), np.asarray(xj))
+    assert np.isnan(want).all() == (nan_at is not None)
+
+
+@pytest.mark.parametrize("members", [1, 2, 3])
+def test_battery_body_checks_the_stream_in_its_last_pass(monkeypatch,
+                                                         members):
+    """Each member's body runs HBM_CHAIN_ITERS - 1 plain passes, then one
+    verifying pass (the check of x), and K2 once, on C."""
+    calls = {"body": 0, "k1": 0, "k1_verify": 0, "k2": []}
+
+    def counted(name, fn):
+        def wrapper(*args, **kw):
+            if name == "k2":
+                calls[name].append(args[0].dtype)
+            else:
+                calls[name] += 1
+            return fn(*args, **kw)
+        return wrapper
+
+    monkeypatch.setattr(tfused, "_battery_body",
+                        counted("body", tfused._battery_body))
+    monkeypatch.setattr(tfused, "stream_increment_",
+                        counted("k1", tfused.stream_increment_))
+    monkeypatch.setattr(tfused, "stream_increment_verify_",
+                        counted("k1_verify", tfused.stream_increment_verify_))
+    monkeypatch.setattr(tfused, "verify_stats",
+                        counted("k2", tfused.verify_stats))
+    checks = tfused.run_fused_battery([CPU] * members, **SMALL)
+    assert all(c.ok for c in checks)
+    bodies = calls["body"]
+    assert bodies == 2 * members  # the warm-up, then the run
+    assert calls["k1_verify"] == bodies
+    assert calls["k1"] == bodies * (tfused.HBM_CHAIN_ITERS - 1)
+    assert calls["k2"] == [torch.bfloat16] * bodies
 
 
 def test_fused_battery_rejects_non_pow2():
