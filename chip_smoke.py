@@ -5,6 +5,12 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --turn N`` takes only what a before-and-after
+compares (phase 3's K4 timings, phase 7's ring-shift round and N
+readings of each ICI probe) and prints it as one JSON line; a copy of
+this file in another tree of the port (a parent's, say) reads that
+tree's kernels and collectives on the same card.
+
 It imports the port (``k8s_operator_libs_tpu_torch``) and nothing of JAX.
 Phases:
 
@@ -27,12 +33,16 @@ Phases:
    and profiler times beside the bound and one library call (K3 and the
    fused step at the ring's two shards and the canary's shape); then
    the fused battery at a small size on
-   the card against the CPU; K4 bit for bit at 2, 3, 4, 5 and 8 sources
-   of 2^20 and 2^22 elements, at a ragged length with unaligned offsets
-   and with a NaN in one source, and the all-reduce (also its
-   persistent form, into new outputs and in place) and ring shift over
-   2, 3, 4 and 8 members of the card against the plain version, with
-   K4's times; K5 byte for byte at 2, 3, 4, 5 and 8 pieces of 2^20 and
+   the card against the CPU; K4 bit for bit at 1 to 8 sources of 2^20
+   and 2^22 elements, at a ragged length aligned and with unaligned
+   offsets, and at every shape the main path gives it (the probe's
+   reduce-scatter node, the ring shift's one element and 2^17, the
+   sharded canary's tp and dp nodes), each with a NaN in one source,
+   and the all-reduce (also its persistent form, into new outputs and
+   in place) and ring shift (one library call and n K4 launches a call)
+   over 2, 3, 4 and 8 members of the card against the plain version,
+   with K4's times at those shapes (events, device time with the L2 warm
+   and cold); K5 byte for byte at 2, 3, 4, 5 and 8 pieces of 2^20 and
    2^22 elements in all, ragged and unaligned, with the own range
    skipped, and with rows a pitch apart (whole vectors, rows of a length
    that is not a multiple of 16 bytes, rows with a byte head and tail),
@@ -49,7 +59,8 @@ Phases:
 6. the node agent publishing a report, which the port's NodeReportProber
    accepts, and the LocalDeviceProber;
 7. the host's collectives over 8 members of the one card: both ICI
-   probes at their defaults, the fused battery (a miss, then a hit, with
+   probes at their defaults (on the path, then 10 readings of each off
+   it, their median printed), the fused battery (a miss, then a hit, with
    K2's launches a body) and
    the unfused one over the 8 members, the LocalDeviceProber over them,
    and a ring in which member 0 keeps its own value, which must fail
@@ -59,7 +70,9 @@ Phases:
    distinct streams (an 8-card board's event traffic), the share of it
    in the kernel library's call (with one, two and three sets of output
    buffers in turn: two graphs a plan, repointed past two), and the bus
-   bandwidth that time allows a board;
+   bandwidth that time allows a board; and the ring shift round (one
+   graph launch) at one element and 2^20 a member, by events and host
+   enqueue;
 8. ring attention on the card: the deep probe over an 8-member ring on
    the one card (S 1024), the soak at S 4096, each with one fused launch
    a ring step, the same two rings timed with the fused step and with the
@@ -104,8 +117,9 @@ the network-path checks) and read just after it: each path names the
 kernels it must launch (K1 and K2 on the battery paths, K1's verifying
 pass as well on the fused ones, K3 on the ring
 paths, K4 and K5 on the all-reduce, sharded and 8-member network paths,
-K4 on the ring shift's), and no path may have fallen back from the
-fused battery.  A child process that fails or outlives its time fails
+K4 on the ring shift's: 2 x 8 on the ring probe's), and no path may have
+fallen back from the fused battery.  K4's launches are also split by
+shape (k, len), from the plans' rounds.  A child process that fails or outlives its time fails
 the run.
 Any failure exits non-zero and prints no result; so does a machine
 without a CUDA device.  The last line of standard output is one JSON
@@ -181,6 +195,11 @@ DCN_GROUPS = ("ring-a", "ring-b")
 DCN_CHILD = "--dcn-child"
 DCN_CHILD_TIMEOUT_S = 300
 DCN_WARM_CALLS = 20
+# Readings of each ICI probe in phase 7 beside its path's one.
+ICI_READINGS = 10
+TURN_ARG = "--turn"
+# The buffer written between calls timed with a cold L2 (50 MB).
+FLUSH_BYTES = 256 * 1024 * 1024
 
 
 def require(cond: bool, msg: str) -> None:
@@ -256,6 +275,216 @@ def dcn_child(group: str, peer: str) -> int:
     return 0
 
 
+def ici_readings(reps: int) -> dict:
+    """Both ICI probes over ``ICI_MEMBERS`` members of card 0, ``reps``
+    times each: the all-reduce's bus bandwidth (GB/s) and the ring's
+    latency (ms), each list sorted (phase 7, and ``turn``)."""
+    import torch
+
+    from k8s_operator_libs_tpu_torch.health.probes import (
+        ici_allreduce_probe,
+        ici_ring_probe,
+    )
+
+    members = [torch.device("cuda", 0)] * ICI_MEMBERS
+    busbw, ring = [], []
+    for _ in range(reps):
+        ar = ici_allreduce_probe(members)
+        require(ar.ok, f"ici_allreduce: {ar.detail}")
+        busbw.append(ar.metrics["busbw_gbps"])
+        rp = ici_ring_probe(members)
+        require(rp.ok, f"ici_ring: {rp.detail}")
+        ring.append(rp.latency_ms)
+    return {"busbw_gbps": sorted(busbw), "ici_ring_ms": sorted(ring)}
+
+
+def card_hbm_gbps(name: str) -> float:
+    """The card's memory rate (GB/s) for the bounds, from the port's
+    table (an H100 SXM's 3350 for a card it does not know)."""
+    from k8s_operator_libs_tpu_torch import hw
+
+    spec = hw.chip_spec(name)
+    return spec.hbm_gbps if spec else 3350.0
+
+
+def bound_ms(nbytes: float, ops: float, hbm_gbps: float,
+             peak_tflops: float = FP32_PEAK_TFLOPS) -> tuple[float, str]:
+    """The least time (ms) for ``nbytes`` of memory traffic and ``ops``
+    operations, and which of the two bounds it."""
+    by_bytes = nbytes / (hbm_gbps * 1e9) * 1e3
+    by_ops = ops / (peak_tflops * 1e12) * 1e3
+    return max(by_bytes, by_ops), (
+        "bytes" if by_bytes >= by_ops else "operations"
+    )
+
+
+def events_ms(fn, iters: int, flush_buf=None) -> float:
+    """Mean ms per call by CUDA events; with ``flush_buf`` each call
+    starts with a cold L2 (the buffer written outside the timed span)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    if flush_buf is None:
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+    total = 0.0
+    for _ in range(iters):
+        flush_buf.zero_()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def device_ms(fn, iters: int, kernels: tuple, flush_buf=None) -> float:
+    """Mean device time per call of the kernels whose names hold one of
+    ``kernels``, from a torch.profiler trace: event times also hold host
+    launch cost where a launch is shorter than the host's work.  With
+    ``flush_buf`` each call starts with a cold L2 (writing the buffer is
+    not one of ``kernels``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    # A trace that shows none of the kernels (seen now and then on the
+    # card, the launches made) is taken again, at most twice.
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if flush_buf is not None:
+                    flush_buf.zero_()
+                fn()
+            torch.cuda.synchronize()
+        us = [op.self_device_time_total for op in prof.key_averages()
+              if op.device_type == DeviceType.CUDA
+              and any(k in op.key for k in kernels)]
+        if us:
+            return sum(us) / iters / 1e3
+        print(f"[timing] trace {attempt + 1} showed no {kernels}; taken "
+              f"again", flush=True)
+    require(False, f"no {kernels} in three profiler traces")
+
+
+def member_elems(tp: int) -> int:
+    """A member's parameters in the sharded canary at the bench width
+    (dp 2 x tp 4) or the elastic runner's smaller bundle (dp 2 x tp 2):
+    what the dp round reduces."""
+    from k8s_operator_libs_tpu_torch.workloads import canary as C
+
+    cfg = C.CanaryConfig(**BENCH_CANARY)
+
+    def walk(shape, spec):
+        if isinstance(spec, dict):
+            return sum(walk(shape[k], spec[k]) for k in spec)
+        return math.prod(shape) // (tp if "tp" in spec else 1)
+
+    return walk(C.param_shapes(cfg), C.param_specs(cfg))
+
+
+def k4_shapes() -> list[tuple[str, int, int]]:
+    """(label, k, len): every shape the main path gives K4, then the two
+    large rows kept from earlier runs."""
+    from k8s_operator_libs_tpu_torch.kernels import collectives
+
+    def node(elems: int, n: int) -> int:  # a round's first chunk
+        a, b = collectives._chunks(elems, n)[0]
+        return b - a
+
+    chunk = node(ALLREDUCE_ELEMS, ICI_MEMBERS)
+    canary = (BENCH_CANARY["batch"] // 2 * BENCH_CANARY["seq_len"]
+              * BENCH_CANARY["d_model"])
+    return [
+        (f"reduce-scatter node of the probe's round, k 8 x {chunk}", 8,
+         chunk),
+        ("ring shift node on the main path, k 1 x 1", 1, 1),
+        (f"ring shift node, k 1 x {chunk}", 1, chunk),
+        (f"canary tp 4 all-reduce node, k 4 x {node(canary, 4)}", 4,
+         node(canary, 4)),
+        (f"canary tp 2 all-reduce node, k 2 x {node(canary, 2)}", 2,
+         node(canary, 2)),
+        (f"canary dp round node (tp 4), k 2 x {node(member_elems(4), 2)}",
+         2, node(member_elems(4), 2)),
+        (f"k 8 x {ALLREDUCE_ELEMS} (32 MiB in)", 8, ALLREDUCE_ELEMS),
+        ("k 8 x 4194304 (128 MiB in)", 8, 1 << 22),
+    ]
+
+
+def k4_timing(dev, gen, hbm_gbps: float) -> list[dict]:
+    """K4 through ``peer_reduce`` at every shape of ``k4_shapes()``: by
+    events, device time with the L2 warm (the inputs of the call before,
+    as a round's chunks are when their producer just wrote them) and
+    cold, the plain version and the library call (one sum over a
+    pre-stacked [k, len] tensor, timed only).  Bound: each source read
+    once and dst written once; k - 1 adds and a division an element,
+    fp32."""
+    import torch
+
+    import k8s_operator_libs_tpu_torch.kernels as K
+
+    flush_buf = torch.empty(FLUSH_BYTES // 4, device=dev)
+    shapes = []
+    for label, k, n in k4_shapes():
+        iters = 200 if k * n <= 1 << 21 else 50 if k * n <= 1 << 23 else 20
+        srcs = [torch.randn(n, device=dev, generator=gen) for _ in range(k)]
+        stacked = torch.stack(srcs)
+        dst = torch.empty(n, device=dev)
+        b_ms, b_by = bound_ms(4 * (k + 1) * n, k * n, hbm_gbps)
+
+        def run():
+            K.peer_reduce(dst, srcs)
+
+        shapes.append(dict(
+            at=label, k=k, len=n,
+            ms=events_ms(run, iters),
+            device_ms=device_ms(run, iters, ("peer_reduce",)),
+            device_cold_ms=device_ms(run, iters, ("peer_reduce",),
+                                     flush_buf),
+            plain_ms=events_ms(lambda: K.peer_reduce_plain(dst, srcs),
+                               iters),
+            library_ms=events_ms(lambda: stacked.sum(0), iters),
+            bound_ms=b_ms, bound_by=b_by,
+        ))
+        del srcs, stacked, dst
+    return shapes
+
+
+def turn(reps: int) -> dict:
+    """What a before-and-after on one card compares, for the tree of the
+    port this file sits in: ``k4_timing``, the ring-shift round over
+    ``ICI_MEMBERS`` members of card 0 by events (one element and
+    ``ALLREDUCE_ELEMS`` a member), and ``ici_readings(reps)``."""
+    import torch
+
+    import k8s_operator_libs_tpu_torch.kernels as K
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out = {"peer_reduce": k4_timing(
+        dev, gen, card_hbm_gbps(torch.cuda.get_device_name(0)))}
+    out["ring_shift_round_ms"] = {}
+    for elems in (1, ALLREDUCE_ELEMS):
+        members = [torch.full((elems,), float(i), device=dev)
+                   for i in range(ICI_MEMBERS)]
+        out["ring_shift_round_ms"][elems] = events_ms(
+            lambda: K.ring_shift(members), 200)
+    out.update(ici_readings(reps))
+    return out
+
+
 def nvidia_smi_name_power() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -279,7 +508,6 @@ def main() -> int:
         return 1
     import k8s_operator_libs_tpu_torch as port
     import k8s_operator_libs_tpu_torch.kernels as K
-    from k8s_operator_libs_tpu_torch import hw
     from k8s_operator_libs_tpu_torch.health import fused
     from k8s_operator_libs_tpu_torch.health.agent import HealthAgent
     from k8s_operator_libs_tpu_torch.artifacts import NetworkPathGateProber
@@ -317,8 +545,7 @@ def main() -> int:
     print(f"device: {name} x{count}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     print(card, flush=True)
-    spec = hw.chip_spec(name)
-    hbm_gbps = spec.hbm_gbps if spec else 3350.0
+    hbm_gbps = card_hbm_gbps(name)
 
     # -- 2. build ----------------------------------------------------------
     build.load_library()
@@ -571,28 +798,42 @@ def main() -> int:
                             want[~nan].view(torch.int32)),
                 f"peer_reduce {what}: bits differ from plain (max {diff})")
 
+    def k4_check(k: int, n: int, off: int, doff: int, what: str) -> int:
+        """K4 bit for bit against its plain version, with a NaN at the
+        last element of one source, with the divisors 1 and k.  The
+        number of cases."""
+        srcs = [torch.randn(n + off, device=dev, generator=gen)
+                for _ in range(k)]
+        srcs[k // 2][off + n - 1] = float("nan")
+        dst = torch.empty(n + doff, device=dev)[doff:]
+        cases = 0
+        for divisor in (1.0, float(k)):
+            want = torch.empty(n, device=dev)
+            K.peer_reduce_plain(want, srcs, off, divisor)
+            dst.fill_(0.0)
+            K.peer_reduce(dst, srcs, off, divisor)
+            same_bits(dst, want, f"{what} k={k} n={n} off={off}/{doff} "
+                                 f"divisor={divisor}")
+            require(bool(dst[n - 1].isnan()),
+                    f"peer_reduce {what} k={k} n={n}: the NaN did not come "
+                    f"out")
+            cases += 1
+        return cases
+
     k4_cases = 0
-    for k in (2, 3, 4, 5, 8):
-        # (length, source offset, dst offset): the main path's 2^20 and
-        # 2^22 (8 x 16 MiB in, beyond the 50 MB L2), aligned; a ragged
-        # length with sources and dst unaligned alike (scalar head), and
-        # apart (scalar throughout).
+    for k in range(1, collectives.MAX_SOURCES + 1):
+        # (length, source offset, dst offset): 2^20 and 2^22 (8 x 16 MiB
+        # in, beyond the 50 MB L2), aligned; a ragged length aligned (a
+        # scalar tail), with sources and dst unaligned alike (scalar head),
+        # and apart (scalar throughout).
         for n, off, doff in ((1 << 20, 0, 0), (1 << 22, 0, 0),
-                             (1_000_003, 3, 3), (1_000_003, 1, 0)):
-            srcs = [torch.randn(n + off, device=dev, generator=gen)
-                    for _ in range(k)]
-            srcs[k // 2][off + n - 1] = float("nan")
-            for divisor in (1.0, float(k)):
-                dst = torch.empty(n + doff, device=dev)[doff:]
-                want = torch.empty(n, device=dev)
-                K.peer_reduce(dst, srcs, off, divisor)
-                K.peer_reduce_plain(want, srcs, off, divisor)
-                same_bits(dst, want, f"k={k} n={n} off={off}/{doff} "
-                                     f"divisor={divisor}")
-                require(bool(dst[n - 1].isnan()),
-                        f"peer_reduce k={k} n={n}: the NaN did not come out")
-                k4_cases += 1
-            del srcs, dst, want
+                             (1_000_003, 0, 0), (1_000_003, 3, 3),
+                             (1_000_003, 1, 0)):
+            k4_cases += k4_check(k, n, off, doff, "")
+    # The shapes the main path gives K4 (k4_shapes()), aligned as the
+    # rounds give them.
+    for label, k, n in k4_shapes():
+        k4_cases += k4_check(k, n, 0, 0, label)
     for n in (2, 3, 4, 5, 8):
         # The main path's 4 MiB, a length ragged against every n, and the
         # network-path gate's 8 elements (chunks start on 16 bytes: two
@@ -621,17 +862,28 @@ def main() -> int:
                     if target:  # the next round reduces the shards again
                         for t, src in zip(copies, shards):
                             t.copy_(src)
-            for j, out in enumerate(K.ring_shift(shards)):
+            # One library call (the plan's graph) and n K4 launches a
+            # ring shift.
+            rounds = {id(p_): p_.rounds for p_ in collectives._PLANS.values()}
+            before = K.peer_reduce.launches
+            ring = K.ring_shift(shards)
+            calls = sum(p_.rounds - rounds.get(id(p_), 0)
+                        for p_ in collectives._PLANS.values())
+            require((calls, K.peer_reduce.launches - before) == (1, n),
+                    f"ring_shift of {n} members: {calls} library calls, "
+                    f"{K.peer_reduce.launches - before} K4 launches")
+            for j, out in enumerate(ring):
                 same_bits(out, shards[j - 1],
                           f"ring_shift of {n} x {elems}, member {j}")
-            del shards, want
+            del shards, want, ring
     print(f"[kernels] K4 matches its plain version bit for bit "
-          f"({k4_cases} cases: k 2, 3, 4, 5, 8; 2^20, 2^22, ragged, "
-          f"unaligned, NaN), and so do all_reduce (one graph a round: K4 "
-          f"and K5), its persistent round (into new outputs and in place) "
-          f"and ring_shift over 2, 3, 4, 5 and 8 members of the card "
-          f"(2^20, 1001 and {fused.NETWORK_ALLREDUCE_ELEMS} elements)",
-          flush=True)
+          f"({k4_cases} cases: k 1 to 8; 2^20, 2^22, ragged, unaligned, "
+          f"NaN, and every shape the main path gives it), and so do "
+          f"all_reduce (one graph a round: "
+          f"K4 and K5), its persistent round (into new outputs and in "
+          f"place) and ring_shift (one graph a call: n K4 nodes) over 2, 3, "
+          f"4, 5 and 8 members of the card (2^20, 1001 and "
+          f"{fused.NETWORK_ALLREDUCE_ELEMS} elements)", flush=True)
 
     # K5 byte for byte: a copy, so every byte agrees with the plain
     # version.  Each case gathers k pieces into one destination and skips
@@ -713,15 +965,6 @@ def main() -> int:
     # outputs and the column inputs' gradients, the gathers of the
     # embedding and the logits along the last dimension, and the dp
     # all-reduce of one member's flat gradients (divisor dp).
-    bench_cfg = C.CanaryConfig(**BENCH_CANARY)
-
-    def member_elems(tp: int) -> int:
-        def walk(shape, spec):
-            if isinstance(spec, dict):
-                return sum(walk(shape[k], spec[k]) for k in spec)
-            return math.prod(shape) // (tp if "tp" in spec else 1)
-        return walk(C.param_shapes(bench_cfg), C.param_specs(bench_cfg))
-
     local_batch = BENCH_CANARY["batch"] // 2
     seq, width = BENCH_CANARY["seq_len"], BENCH_CANARY["d_model"]
     for tp in (4, 2):
@@ -753,58 +996,18 @@ def main() -> int:
           f"round of {member_elems(4)} and {member_elems(2)} elements over "
           f"2)", flush=True)
 
-    flush_buf = torch.empty(256 * 1024 * 1024 // 4, device=dev)
+    flush_buf = torch.empty(FLUSH_BYTES // 4, device=dev)
 
     def time_ms(fn, iters: int, flush: bool = False) -> float:
-        """Mean ms per call by CUDA events; with ``flush`` each call
-        starts with a cold L2 (a 256 MiB write outside the timed span)."""
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        if not flush:
-            start.record()
-            for _ in range(iters):
-                fn()
-            end.record()
-            torch.cuda.synchronize()
-            return start.elapsed_time(end) / iters
-        total = 0.0
-        for _ in range(iters):
-            flush_buf.zero_()
-            start.record()
-            fn()
-            end.record()
-            torch.cuda.synchronize()
-            total += start.elapsed_time(end)
-        return total / iters
+        return events_ms(fn, iters, flush_buf if flush else None)
 
     def bound(nbytes: float, ops: float,
               peak_tflops: float = FP32_PEAK_TFLOPS) -> tuple[float, str]:
-        by_bytes = nbytes / (hbm_gbps * 1e9) * 1e3
-        by_ops = ops / (peak_tflops * 1e12) * 1e3
-        return max(by_bytes, by_ops), (
-            "bytes" if by_bytes >= by_ops else "operations"
-        )
+        return bound_ms(nbytes, ops, hbm_gbps, peak_tflops)
 
-    def kernel_device_ms(fn, iters: int, *kernels: str) -> float:
-        """Mean device time per call of the kernels whose names hold one
-        of ``kernels``, from a torch.profiler trace: the event times above
-        also hold host launch cost where a launch is shorter than the
-        host's work."""
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        us = [op.self_device_time_total for op in prof.key_averages()
-              if op.device_type == DeviceType.CUDA
-              and any(k in op.key for k in kernels)]
-        require(bool(us), f"no {kernels} in the profiler trace")
-        return sum(us) / iters / 1e3
+    def kernel_device_ms(fn, iters: int, *kernels: str,
+                         flush: bool = False) -> float:
+        return device_ms(fn, iters, kernels, flush_buf if flush else None)
 
     x = torch.zeros(n_x, device=dev)
     c = torch.full((4096, 4096), 0.5, dtype=torch.bfloat16, device=dev)
@@ -943,34 +1146,10 @@ def main() -> int:
     timing["block_attention"] = dict(shapes[0],
                                      shapes=shapes + merge_shapes)
 
-    # K4 at the shapes of the main path's all-reduce (8 members of 2^20:
-    # a reduce-scatter launch reads 8 chunks of 2^17, an all-gather launch
-    # copies one) and over whole shards of 2^20 and 2^22.  Bytes: each
-    # source read once, dst written once; operations: k - 1 adds and a
-    # division per element, fp32.  The library call is one sum over a
-    # pre-stacked [k, len] tensor, timed only.
-    shapes = []
-    chunk = ALLREDUCE_ELEMS // ICI_MEMBERS
-    for label, k, n, iters in (
-        (f"reduce-scatter launch, k 8 x {chunk}", 8, chunk, 200),
-        (f"all-gather launch, k 1 x {chunk}", 1, chunk, 200),
-        (f"k 8 x {ALLREDUCE_ELEMS} (32 MiB in)", 8, ALLREDUCE_ELEMS, 50),
-        ("k 8 x 4194304 (128 MiB in)", 8, 1 << 22, 20),
-    ):
-        srcs = [torch.randn(n, device=dev, generator=gen) for _ in range(k)]
-        stacked = torch.stack(srcs)
-        dst = torch.empty(n, device=dev)
-        b_ms, b_by = bound(4 * (k + 1) * n, k * n)
-        shapes.append(dict(
-            at=label,
-            ms=time_ms(lambda: K.peer_reduce(dst, srcs), iters),
-            device_ms=kernel_device_ms(lambda: K.peer_reduce(dst, srcs),
-                                       iters, "peer_reduce_kernel"),
-            plain_ms=time_ms(lambda: K.peer_reduce_plain(dst, srcs), iters),
-            library_ms=time_ms(lambda: stacked.sum(0), iters),
-            bound_ms=b_ms, bound_by=b_by,
-        ))
-        del srcs, stacked, dst
+    # K4 at every shape of the main path (the probe's reduce-scatter
+    # node, the ring shift's, the canary's tp and dp nodes) and two large
+    # rows.
+    shapes = k4_timing(dev, gen, hbm_gbps)
     timing["peer_reduce"] = dict(shapes[0], shapes=shapes)
 
     # K5 at the main path's shapes: the all-reduce's all-gather launch (7
@@ -979,6 +1158,7 @@ def main() -> int:
     # the logits' vocab at tp 4).  Bytes: each piece read once, written
     # once.  The library call is torch.cat of the pieces, timed only.
     shapes = []
+    chunk = ALLREDUCE_ELEMS // ICI_MEMBERS
     for label, k, rows, n, iters in (
         (f"all-reduce all-gather launch, k 7 x {chunk}", 7, 1, chunk, 200),
         ("canary gather along -1, k 4 x [16, 512, 256]", 4, 16 * 512, 256,
@@ -1048,23 +1228,49 @@ def main() -> int:
     fused_kernels = battery_kernels + ("stream_increment_verify_",)
     ring_kernels = ("block_attention",)
 
+    def k4_nodes(key) -> list[tuple[int, int]]:
+        """(k, len) of each K4 node of the plan under ``key``."""
+        kind, devices, a, _ = key
+        n = len(devices)
+        if kind == collectives.ALL_REDUCE:
+            return [(n, hi - lo) for lo, hi in collectives._chunks(a, n)
+                    if hi > lo]
+        return [(1, a)] * n if kind == collectives.RING_SHIFT else []
+
+    # K4's launches on the main path by (k, len): the plans' rounds times
+    # their nodes; "standalone" for launches outside a plan.
+    k4_by_shape: dict = {}
+
     def on_path(label: str, fn, must: tuple[str, ...]):
         """Run one path of the main path with the counts zeroed just
         before it and read just after it; each kernel the path names in
-        ``must`` has to have launched."""
+        ``must`` has to have launched.  K4's launches are also split by
+        shape."""
         K.reset_launch_counts()
+        rounds = {key: p_.rounds for key, p_ in collectives._PLANS.items()}
         out = fn()
         counts = K.launch_counts()
         fused_steps = K.block_attention_merge_.launches
+        by_shape: dict = {}
+        for key, p_ in list(collectives._PLANS.items()):
+            ran = p_.rounds - rounds.get(key, 0)
+            for shape in k4_nodes(key) if ran else ():
+                by_shape[shape] = by_shape.get(shape, 0) + ran
+        standalone = counts["peer_reduce"] - sum(by_shape.values())
+        if standalone:
+            by_shape["standalone"] = standalone
         print(f"[launches] {label}: "
               + ", ".join(f"{k} {n}" for k, n in counts.items())
-              + f" (of K3's, fused ring steps {fused_steps})", flush=True)
+              + f" (of K3's, fused ring steps {fused_steps}; K4 by (k, "
+              f"len): {by_shape})", flush=True)
         for kname in must:
             require(counts[kname] > 0,
                     f"{kname} was not launched on the {label} path")
         for kname, n in counts.items():
             launches[kname] += n
         launches["block_attention_merge_"] += fused_steps
+        for shape, n in by_shape.items():
+            k4_by_shape[shape] = k4_by_shape.get(shape, 0) + n
         return out
 
     def launches_a_body(label: str, bodies: int) -> None:
@@ -1200,6 +1406,19 @@ def main() -> int:
     require(rp.ok and rp.detail == ("all 8 locally-received ring link(s) "
                                     "verified (8-device ring)"),
             f"ici_ring: {rp.detail}")
+    # The probe shifts twice (a warm-up, then the timed call): n K4 nodes
+    # a call.
+    require(K.launch_counts()["peer_reduce"] == 2 * ICI_MEMBERS,
+            f"ici_ring: {K.launch_counts()['peer_reduce']} K4 launches, "
+            f"want {2 * ICI_MEMBERS}")
+    readings = ici_readings(ICI_READINGS)
+    print(f"[collectives] {ICI_READINGS} more of each probe, median "
+          f"(sorted): ici_allreduce "
+          f"{readings['busbw_gbps'][ICI_READINGS // 2]:.2f} GB/s "
+          f"({', '.join(f'{x:.2f}' for x in readings['busbw_gbps'])}); "
+          f"ici_ring {readings['ici_ring_ms'][ICI_READINGS // 2]:.4f} ms "
+          f"({', '.join(f'{x:.4f}' for x in readings['ici_ring_ms'])}) "
+          f"on {card}", flush=True)
 
     fallbacks = fused.battery_stats()["fallbacks"]
     for attempt, hit in (("cold", 0.0), ("warm", 1.0)):
@@ -1350,7 +1569,27 @@ def main() -> int:
             require(bool((out == 36.0).all()),
                     "the library's round on the card is wrong")
     del fixed, rounds
-    ring_round_ms = time_ms(lambda: K.ring_shift(shards), 50)
+    # The ring shift over the 8 members, one graph launch a call: at the
+    # main path's one element a member and at the round's 2^20.
+    ones = [torch.full((1,), float(i), device=dev)
+            for i in range(ICI_MEMBERS)]
+    ring_rounds = {}
+    for elems, members_ in ((1, ones), (ALLREDUCE_ELEMS, shards)):
+        ring_rounds[elems] = (
+            time_ms(lambda: K.ring_shift(members_), 200),
+            enqueue_us(lambda: K.ring_shift(members_)),
+        )
+        for j, out in enumerate(K.ring_shift(members_)):
+            require(torch.equal(out, members_[j - 1]),
+                    f"ring shift of {elems} a member: member {j} is wrong")
+    ring_round_ms = ring_rounds[ALLREDUCE_ELEMS][0]
+    print(f"[collectives] ring shift round over {ICI_MEMBERS} members of "
+          f"the card (one graph of {ICI_MEMBERS} K4 nodes): " + "; ".join(
+              f"{elems} a member {ms:.4f} ms by events, host enqueue "
+              f"{us[0] / 1e3:.4f} ms (median {us[1] / 1e3:.4f} ms)"
+              for elems, (ms, us) in ring_rounds.items())
+          + f" on {card}", flush=True)
+    del ones
     moved = 2 * (ICI_MEMBERS - 1) / ICI_MEMBERS * 4 * ALLREDUCE_ELEMS
     link_ms = moved / (NVLINK_GBPS * 1e9) * 1e3
     floor = resolve_floors(name)
@@ -1918,6 +2157,10 @@ def main() -> int:
     for row in timing["block_attention"]["shapes"]:
         if row.get("entry") == "block_attention_merge_":
             row["launches"] = launches["block_attention_merge_"]
+    for row in timing["peer_reduce"]["shapes"]:
+        row["launches"] = k4_by_shape.get((row["k"], row["len"]), 0)
+    print(f"[launches] K4 on the main path by (k, len): {k4_by_shape}",
+          flush=True)
     timing["block_attention"]["ring_steps"] = ring_steps
     kernels = [
         dict(
@@ -1939,4 +2182,11 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == DCN_CHILD:
         sys.exit(dcn_child(sys.argv[2], sys.argv[3]))
+    if len(sys.argv) == 3 and sys.argv[1] == TURN_ARG:
+        import torch
+
+        require(torch.cuda.is_available(), "no CUDA device")
+        print(nvidia_smi_name_power(), flush=True)
+        print(json.dumps(turn(int(sys.argv[2]))), flush=True)
+        sys.exit(0)
     sys.exit(main())

@@ -138,7 +138,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.collective_peer_enable.argtypes = [i, i]
     lib.collective_peer_enable.restype = i
     lib.collective_peer_reduce.argtypes = [
-        ctypes.POINTER(vp), i, sz, sz, vp, f,  # srcs, k, off, len, dst, divisor
+        vp, i, sz, sz, vp, f,  # packed src[k] as uint64, k, off, len, dst,
+        # divisor
         i, vp,  # device, stream
     ]
     lib.collective_peer_reduce.restype = i
@@ -167,6 +168,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 def load_library() -> ctypes.CDLL:
     """The kernel library, compiled on first use in this checkout."""
     global _LIB, last_build_s
+    if _LIB is not None:  # every launch asks: no lock once loaded
+        return _LIB
     with _LOCK:
         if _LIB is None:
             t0 = time.perf_counter()

@@ -30,15 +30,16 @@ card, each on that card's current stream).
   the shards along ``dim`` (JAX's ``all_gather(..., tiled=True)``), one
   K5 launch a member writing the gathered layout directly.
 - ``ring_shift(shards)``: member j gets member j-1's shard (JAX's
-  ``ppermute`` by +1), one K4 launch at k = 1 on each member.
+  ``ppermute`` by +1), one K4 node at k = 1 on each member.
 
-One host call a round.  On CUDA tensors ``all_reduce`` and
-``all_gather`` hand the round to a plan in the kernel library (one per
-shape: the members' devices, the length and the kind), which keeps the
-round's launches as a CUDA graph and enqueues it with one
+One host call a round.  On CUDA tensors ``all_reduce``, ``all_gather``
+and ``ring_shift`` hand the round to a plan in the kernel library (one
+per shape: the members' devices, the length and the kind), which keeps
+the round's launches as a CUDA graph and enqueues it with one
 ``cudaGraphLaunch`` and the events that order it against the members'
-streams: an all-reduce of n members is 2n kernels and two phases, and
-launching them one by one cost the host more than the device's work.  A
+streams: an all-reduce of n members is 2n kernels and two phases, a
+ring shift n independent kernels, and launching them one by one cost
+the host more than the device's work.  A
 plan keeps two graphs, so rounds that alternate between two sets of
 buffers replay without repointing, and repoints the one not used last
 when a round's pointers are new; the outputs are always freshly
@@ -54,8 +55,7 @@ device's current stream.  Before a round reads its inputs, the first
 member's stream waits for every other member's; the round runs on the
 first member's stream (its kernels on their members' devices, the
 phases ordered by graph edges); after it, every other member's stream
-waits for the first's.  The ring shift orders each link with one wait
-before and one after.  After a call returns, later work on any member's
+waits for the first's.  After a call returns, later work on any member's
 current stream is ordered after every read of every input and output, so
 the caller may overwrite or free them at once: the caching allocator
 reuses a block only for later work on the stream that allocated it,
@@ -65,8 +65,12 @@ of one allocation (one per device and round).
 
 Tensors on the CPU take the kernels' plain versions, and the same
 algorithms run in program order; on CUDA tensors the wrappers launch the
-kernels or raise.  ``peer_reduce.launches`` and ``peer_gather.launches``
-count kernel launches, a round's graph counting each of its kernels.
+kernels or raise.  The standalone wrappers keep their host work short:
+their checks are a few C-level passes over the sources (a second look
+only to name a fault), the pointers are packed into one buffer, and
+peer access is asked for only across devices.  ``peer_reduce.launches``
+and ``peer_gather.launches`` count kernel launches, a round's graph
+counting each of its kernels.
 
 The list-level autograd functions ``copy_to_members``,
 ``reduce_from_members`` and ``gather_from_members`` wrap the collectives
@@ -161,37 +165,55 @@ def peer_reduce_plain(dst, srcs, off: int = 0, divisor: float = 1.0):
     return dst
 
 
-def _launch(dst, ptrs: Sequence[int], off: int, divisor: float,
-            stream) -> None:
-    """One K4 launch on ``stream`` (of ``dst``'s device), inputs checked."""
-    lib = load_library()
-    k = len(ptrs)
-    code = lib.collective_peer_reduce(
-        (ctypes.c_void_p * k)(*ptrs), k, off, dst.numel(), dst.data_ptr(),
-        divisor, dst.device.index, stream.cuda_stream,
-    )
-    check(lib, code, "peer_reduce")
-    peer_reduce.launches += 1
-
-
 def peer_reduce(dst, srcs, off: int = 0, divisor: float = 1.0):
     """K4: ``dst[:] = (srcs[0][off:off+len] + ...) / divisor`` for a
     contiguous fp32 ``dst`` of ``len`` elements and 1 to ``MAX_SOURCES``
     contiguous fp32 sources; returns ``dst``.  On CUDA it launches on
     the current stream of ``dst``'s device; the caller orders the
     sources' producers (on other devices' streams) before it."""
-    srcs = list(srcs)
-    _check_reduce(dst, srcs, off)
-    if dst.device.type == "cpu":
+    # The checks are a few C-level passes over the sources; when one
+    # fails, _check_reduce takes a second look and names the fault.
+    if type(srcs) is not list:
+        srcs = list(srcs)
+    k = len(srcs)
+    try:
+        home = dst.get_device()
+        n = dst.numel()
+        devices = list(map(torch.Tensor.get_device, srcs))
+        fine = (0 < k <= MAX_SOURCES and off >= 0 and n > 0
+                and dst.dtype == torch.float32 and dst.is_contiguous()
+                and list(map(_DTYPE, srcs)).count(torch.float32) == k
+                and all(map(torch.Tensor.is_contiguous, srcs))
+                and min(map(torch.Tensor.numel, srcs)) >= off + n
+                and (min(devices) >= 0 if home >= 0
+                     else dst.is_cpu and all(map(_IS_CPU, srcs))))
+    except (TypeError, AttributeError):  # dst or a source not a tensor
+        fine = False
+    if not fine:
+        _check_reduce(dst, srcs, off)
+        raise AssertionError("peer_reduce: failed a check none names")
+    if home < 0:
         return peer_reduce_plain(dst, srcs, off, divisor)
-    for s in srcs:
-        enable_peer_access(dst.device.index, s.device.index)
-    _launch(dst, [s.data_ptr() for s in srcs], off, divisor,
-            torch.cuda.current_stream(dst.device))
+    if devices.count(home) != k:
+        for peer in set(devices) - {home}:
+            enable_peer_access(home, peer)
+    lib = load_library()
+    code = lib.collective_peer_reduce(
+        _PACK_SOURCES[k](*map(torch.Tensor.data_ptr, srcs)), k, off, n,
+        dst.data_ptr(), divisor, home,
+        torch._C._cuda_getCurrentRawStream(home),
+    )
+    if code:
+        check(lib, code, "peer_reduce")
+    peer_reduce.launches += 1
     return dst
 
 
 peer_reduce.launches = 0
+
+# K4's source pointers packed as the C side reads them, by k.
+_PACK_SOURCES = [struct.Struct(f"={k}Q").pack
+                 for k in range(MAX_SOURCES + 1)]
 
 
 def _check_gather(dst, pieces, offsets, rows: int, pitch: int):
@@ -370,12 +392,13 @@ def _member_devices(shards: list, what: str, dtype=torch.float32):
     raise AssertionError(f"{what}: members failed a check none names")
 
 
-ALL_REDUCE, ALL_GATHER = 0, 1
+# The plans' kinds (Kind in csrc/collective_kernels.cu).
+ALL_REDUCE, ALL_GATHER, RING_SHIFT = 0, 1, 2
 
 _PLANS_LOCK = threading.Lock()
 # Round plans of the kernel library by (kind, member devices, two sizes:
-# elements and bytes a member for an all-reduce, rows and bytes a row
-# for an all-gather).
+# elements and bytes a member for an all-reduce or a ring shift, rows and
+# bytes a row for an all-gather).
 _PLANS: dict[tuple, "_RoundPlan"] = {}
 
 
@@ -426,6 +449,8 @@ class _RoundPlan:
         self.one_device = devices.count(devices[0]) == n
         self.k4 = sum(rs)
         self.k5 = sum(ag)
+        # Rounds launched (chip_smoke.py splits K4's launches by shape).
+        self.rounds = 0
         # The round's pointers, packed as the C side reads them: in[n],
         # out[n], streams[n] as uint64.
         self.pack = struct.Struct(f"={3 * n}Q").pack
@@ -460,6 +485,7 @@ class _RoundPlan:
         code = self.launch_fn(self.handle, packed, divisor)
         if code:
             check(self.lib, code, "collective round")
+        self.rounds += 1
         peer_reduce.launches += self.k4
         peer_gather.launches += self.k5
 
@@ -488,8 +514,9 @@ class _RoundPlan:
 
 def _plan(kind: int, devices: tuple, a: int, b: int) -> _RoundPlan:
     """The plan of a round of ``kind`` over members on ``devices``, made
-    on first use: an all-reduce of ``a`` fp32 elements (``b`` bytes) a
-    member, or an all-gather of members of ``a`` rows of ``b`` bytes."""
+    on first use: an all-reduce or ring shift of ``a`` fp32 elements
+    (``b`` bytes) a member, or an all-gather of members of ``a`` rows of
+    ``b`` bytes."""
     key = (kind, devices, a, b)
     plan = _PLANS.get(key)
     if plan is None:
@@ -499,6 +526,8 @@ def _plan(kind: int, devices: tuple, a: int, b: int) -> _RoundPlan:
                 n = len(devices)
                 if kind == ALL_REDUCE:
                     bounds, rows, pitch = _chunks(a, n), 1, 0
+                elif kind == RING_SHIFT:
+                    bounds, rows, pitch = [(0, a)] * n, 1, 0
                 else:
                     bounds = [(i * b, (i + 1) * b) for i in range(n)]
                     rows, pitch = a, n * b
@@ -648,28 +677,25 @@ def all_gather(shards: Sequence[torch.Tensor],
 
 def ring_shift(shards: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     """Member j's new tensor is a copy of member j-1's shard (mod n), on
-    member j's device."""
+    member j's device; contiguous fp32 members of one shape (on CUDA at
+    most ``MAX_SOURCES``)."""
     shards = list(shards)
-    cuda = _member_devices(shards, "ring_shift") is not None
+    devices = _member_devices(shards, "ring_shift")
     n = len(shards)
-    outs = [torch.empty_like(s) for s in shards]
-    if not cuda:
+    if devices is None:
+        outs = [torch.empty_like(s) for s in shards]
         for j in range(n):
             peer_reduce_plain(outs[j].view(-1), [shards[j - 1]], 0, 1.0)
         return outs
-    devices = sorted({s.device.index for s in shards})
-    for d in devices:
-        for p in devices:
-            enable_peer_access(d, p)
-    streams = [torch.cuda.current_stream(s.device) for s in shards]
-    for j in range(n):  # shard j-1's producer before j reads it
-        streams[j].wait_stream(streams[j - 1])
-    for j in range(n):
-        _launch(outs[j].view(-1), [shards[j - 1].data_ptr()], 0, 1.0,
-                streams[j])
-    for j in range(n):  # j's read before shard j-1's later work
-        streams[j - 1].wait_stream(streams[j])
-    return outs
+    if n > MAX_SOURCES:
+        raise ValueError(
+            f"ring_shift: at most {MAX_SOURCES} members on CUDA, got {n}"
+        )
+    first = shards[0]
+    numel = first.numel()
+    return _plan(RING_SHIFT, devices, numel, 4 * numel).run(
+        shards, first.shape, 4 * numel, 1.0, None
+    )
 
 
 # -- autograd over a list of members (tensor parallelism) -------------------

@@ -19,24 +19,50 @@
 //   goes over NVLink.  k is at most kMaxSources (8, the cards of an HGX
 //   board); the source pointers travel by value in a fixed-size
 //   parameter struct.
-//   Replaces the XLA collectives of the JAX package's health battery:
-//   the psum of ici_allreduce_probe (k8s_operator_libs_tpu/health/
-//   probes.py:617-618), the +1 ppermute of ici_ring_probe (701-702) and
-//   the chained psum rounds and ppermute ring of the fused battery
-//   (health/fused.py:212-220).  The all-reduce round (below) runs it as
-//   its reduce-scatter, one launch at k = n per member; the ring shift in
-//   kernels/collectives.py launches it at k = 1 on each member.
-//   Bound: memory (device memory, or the NVLink that carries a peer's
-//   bytes).  A launch reads k * len * 4 bytes and writes len * 4, against
-//   k - 1 adds and one division per element.
+//   Replaces the XLA collectives of the JAX package (PERF.md's D1, D4,
+//   D5, D8): the psum of ici_allreduce_probe (k8s_operator_libs_tpu/
+//   health/probes.py:617-618), the +1 ppermute of ici_ring_probe
+//   (701-702), the chained psum rounds and ppermute ring of the fused
+//   battery (health/fused.py:212-220) and the psums of the sharded canary
+//   step (workloads/canary.py:127-267).  The all-reduce plan runs it as
+//   its reduce-scatter, one node at k = n a member; the ring-shift plan
+//   as one node at k = 1 a member.
+//   Bound: memory.  A launch reads k * len * 4 bytes (device memory, the
+//   L2 when a round's inputs were just written, or the NVLink that
+//   carries a peer's bytes) and writes len * 4, against k - 1 adds and
+//   one division an element.  At the probe's reduce-scatter node (k 8 x
+//   2^17, 4.5 MiB) and the ring shift (k 1, one element on the main
+//   path) a launch is a single round trip to memory: its time is the
+//   ramp of the grid plus one latency.  At the canary's tp all-reduce
+//   nodes (k 4 x 2^21, k 2 x 2^22), its dp round's (k 2 x half a
+//   member's gradients) and the large rows (k 8 x 2^22) it streams device
+//   memory (PERF.md gives its share of the bound at each shape).
 //   Design: a grid-stride loop over 16-byte float4 chunks, one template
-//   instance per k so the k loads of a chunk are issued together and
-//   summed in registers; size_t index math.  When every (src_s + off)
-//   and dst share one alignment modulo 16 bytes, a scalar head brings
-//   them to a 16-byte boundary and a scalar tail finishes the length;
-//   otherwise every element takes the scalar path.  Loads are plain
-//   global loads (no read-only cache hint), which are valid on a peer's
-//   memory.
+//   instance per k, so a thread issues the k loads of a chunk together
+//   and sums them in registers in order 0..k-1; blocks of 256 threads,
+//   enough for one chunk a thread, at most kBlocksPerSM an SM; size_t
+//   index math.  The grid comes from k, len and the alignment class
+//   alone, never from pointer values, so a repointed graph node keeps a
+//   valid grid.  When every (src_s + off) and dst share one alignment
+//   modulo 16 bytes, a scalar head brings them to a 16-byte boundary and
+//   a scalar tail finishes the length; otherwise every element takes the
+//   scalar path.  Loads are global loads without the read-only path,
+//   valid on a peer's memory; stores keep the default policy (the
+//   all-gather node reads the reduce-scatter's output next).  No cache
+//   hint: each variant below was timed against this body at every shape
+//   of the main path, on the card and in turns, and none was faster at
+//   all of them (PERF.md has the figures):
+//   - loads under an L2 evict-first policy, or with no L1 allocation:
+//     faster at some large shapes, slower with the sources in the L2 (up
+//     to 1.5x at k 8 x 2^20) and at the dp node;
+//   - four 16-byte loads a thread before the first add at k < 4,
+//     unrolled over vectors: slower at the ring shift's k 1 x 2^17;
+//   - a block on every SM at the small shapes, warps numbered across the
+//     grid: faster at k 4 x 2^21 with the L2 warm, slower at every k 8
+//     shape;
+//   - bulk copies into a ring of shared-memory stages (one producer
+//     thread, cp.async.bulk on an mbarrier, eight consumer warps): slower
+//     or no faster at every shape.
 //
 // K5 peer_gather: on the launching device, for each source s < k and
 //   each row r < rows,
@@ -88,7 +114,10 @@
 //     chunk) on device j, each AG after every RS (graph edges, no host
 //     event; an empty join node between the phases measured slower, both
 //     in the launch and on the device).  all-gather: node AG_j alone (K5
-//     over every member's piece, rows interleaved as above).
+//     over every member's piece, rows interleaved as above).  ring shift:
+//     node RS_j alone, K4 at k = 1 on device j, reading member j-1's
+//     whole shard (mod n) into member j's output; the n nodes are
+//     independent.
 //   Launch: the first member's stream waits for every other member's
 //   stream (their inputs' producers), the graph runs on the first
 //   member's stream, and every other member's stream waits for it: after
@@ -108,6 +137,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <mutex>
 #include <new>
 
@@ -125,6 +155,8 @@ constexpr int kBlocksPerSM = 8;
 constexpr int kGatherInFlight = 4;
 // Instantiated graphs a round plan keeps (see the plan's notes above).
 constexpr int kGraphs = 2;
+// Devices whose SM count the library caches.
+constexpr int kMaxDevices = 64;
 
 struct Sources {
   const float* p[kMaxSources];
@@ -298,9 +330,19 @@ int grid_for(size_t items, int sms) {
   return static_cast<int>(want);
 }
 
-int sm_count(int device, cudaError_t* err) {
-  int sms = 0;
+// Device `device`'s SM count, asked once.
+int device_sms(int device, cudaError_t* err) {
+  static std::atomic<int> cached[kMaxDevices];
+  *err = cudaSuccess;
+  if (device < 0 || device >= kMaxDevices) {
+    *err = cudaErrorInvalidDevice;
+    return 0;
+  }
+  int sms = cached[device].load(std::memory_order_relaxed);
+  if (sms > 0) return sms;
+  // Two first callers both ask; they store the same number.
   *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (*err == cudaSuccess) cached[device].store(sms, std::memory_order_relaxed);
   return sms;
 }
 
@@ -434,7 +476,8 @@ GatherArgs gather_args(const void* const* srcs, const size_t* offs,
 
 // -- the round plan ---------------------------------------------------------
 
-enum Kind { kAllReduce = 0, kAllGather = 1 };
+// ALL_REDUCE, ALL_GATHER and RING_SHIFT in kernels/collectives.py.
+enum Kind { kAllReduce = 0, kAllGather = 1, kRingShift = 2 };
 
 // One instantiated graph of a plan, and the pointers and divisor its
 // nodes hold (when `current`).
@@ -456,7 +499,8 @@ struct Plan {
   int sms[kMaxSources];
   // all-reduce: member i's chunk [begin, end) in elements; all-gather:
   // member i's piece lands at bytes [begin, end) of each of `rows` rows
-  // of every output, the rows `pitch` bytes apart.
+  // of every output, the rows `pitch` bytes apart; ring shift: member
+  // i's whole shard, [0, elements).
   size_t begin[kMaxSources];
   size_t end[kMaxSources];
   size_t rows;
@@ -467,14 +511,20 @@ struct Plan {
   std::mutex mu;
 };
 
-// Member j's nodes for the pointers of one round.
+// Member j's nodes for the pointers of one round.  The all-reduce's
+// node reduces chunk j of every member's input into member j's output;
+// the ring shift's copies member j-1's input (mod n) into it.
 ReduceArgs rs_args(const Plan& p, const uint64_t* in, const uint64_t* out,
                    float divisor, int j) {
+  const size_t len = p.end[j] - p.begin[j];
+  float* dst = reinterpret_cast<float*>(out[j]) + p.begin[j];
+  if (p.kind == kRingShift) {
+    const void* src = reinterpret_cast<const void*>(in[(j + p.n - 1) % p.n]);
+    return reduce_args(&src, 1, 0, len, dst, 1.0f, p.sms[j]);
+  }
   const void* srcs[kMaxSources];
   for (int i = 0; i < p.n; ++i) srcs[i] = reinterpret_cast<const void*>(in[i]);
-  float* dst = reinterpret_cast<float*>(out[j]) + p.begin[j];
-  return reduce_args(srcs, p.n, p.begin[j], p.end[j] - p.begin[j], dst,
-                     divisor, p.sms[j]);
+  return reduce_args(srcs, p.n, p.begin[j], len, dst, divisor, p.sms[j]);
 }
 
 GatherArgs ag_args(const Plan& p, const uint64_t* in, const uint64_t* out,
@@ -502,10 +552,11 @@ GatherArgs ag_args(const Plan& p, const uint64_t* in, const uint64_t* out,
 }
 
 bool has_rs(const Plan& p, int j) {
-  return p.kind == kAllReduce && p.end[j] > p.begin[j];
+  return p.kind != kAllGather && p.end[j] > p.begin[j];
 }
 
 bool has_ag(const Plan& p, int j) {
+  if (p.kind == kRingShift) return false;
   // An all-reduce member with every other chunk empty copies nothing.
   int k = 0;
   for (int i = 0; i < p.n; ++i) {
@@ -649,18 +700,21 @@ int collective_peer_enable(int device, int peer) {
   return static_cast<int>(err);
 }
 
-int collective_peer_reduce(const void* const* srcs, int k, size_t off,
+// srcs holds the k source pointers as uint64.
+int collective_peer_reduce(const uint64_t* srcs, int k, size_t off,
                            size_t len, float* dst, float divisor, int device,
                            void* stream) {
   if (k < 1 || k > kMaxSources || len == 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  cudaError_t err;
+  const int sms = device_sms(device, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
-  cudaError_t err;
-  const int sms = sm_count(device, &err);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ReduceArgs a = reduce_args(srcs, k, off, len, dst, divisor, sms);
+  const void* ptrs[kMaxSources];
+  for (int s = 0; s < k; ++s) ptrs[s] = reinterpret_cast<const void*>(srcs[s]);
+  ReduceArgs a = reduce_args(ptrs, k, off, len, dst, divisor, sms);
   cudaKernelNodeParams np = a.node();
   err = cudaLaunchKernel(np.func, np.gridDim, np.blockDim, np.kernelParams,
                          0, static_cast<cudaStream_t>(stream));
@@ -675,11 +729,11 @@ int collective_peer_gather(const uint64_t* ptrs, int k, size_t rows,
   if (k < 1 || k > kMaxSources || rows < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  cudaError_t err;
+  const int sms = device_sms(device, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
-  cudaError_t err;
-  const int sms = sm_count(device, &err);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const void* srcs[kMaxSources];
   size_t offs[kMaxSources];
   size_t lens[kMaxSources];
@@ -699,13 +753,14 @@ int collective_peer_gather(const uint64_t* ptrs, int k, size_t rows,
 // chunk is elements [begin[i], end[i]) of an fp32 shard; rows 1), kind 1
 // all-gather (member i's piece is `rows` rows that land at bytes
 // [begin[i], end[i]) of each row of every output, the rows `pitch` bytes
-// apart).  Writes the handle to *plan; returns a CUDA error code.
+// apart), kind 2 ring shift (member i's fp32 shard is elements [begin[i],
+// end[i]) = [0, elements); rows 1).  Writes the handle to *plan;
+// returns a CUDA error code.
 int collective_plan_create(int kind, int n, const int* devices,
                            const size_t* begin, const size_t* end,
                            size_t rows, size_t pitch, void** plan) {
-  if (n < 1 || n > kMaxSources || rows < 1 ||
-      (kind != kAllReduce && kind != kAllGather) ||
-      (kind == kAllReduce && rows != 1)) {
+  if (n < 1 || n > kMaxSources || rows < 1 || kind < kAllReduce ||
+      kind > kRingShift || (kind != kAllGather && rows != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Plan* p = new (std::nothrow) Plan();
@@ -720,7 +775,7 @@ int collective_plan_create(int kind, int n, const int* devices,
     p->devices[i] = devices[i];
     p->begin[i] = begin[i];
     p->end[i] = end[i];
-    if (err == cudaSuccess) p->sms[i] = sm_count(devices[i], &err);
+    if (err == cudaSuccess) p->sms[i] = device_sms(devices[i], &err);
     if (err == cudaSuccess) {
       const DeviceGuard guard(devices[i]);
       err = guard.err;
@@ -798,7 +853,7 @@ int collective_plan_launch(void* plan, const uint64_t* ptrs, float divisor) {
 }
 
 // The K4 and K5 nodes of the plan's graph: rs[j] and ag[j] are 1 where
-// member j has that node.
+// member j has that node (rs: a reduce-scatter or ring-shift node).
 void collective_plan_nodes(void* plan, int* rs, int* ag) {
   const Plan& p = *static_cast<Plan*>(plan);
   for (int j = 0; j < p.n; ++j) {

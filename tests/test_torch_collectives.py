@@ -18,7 +18,9 @@ from __future__ import annotations
 
 import inspect
 import itertools
+import math
 import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -223,15 +225,22 @@ def test_persistent_all_reduce_checks_its_outputs():
         collectives.all_reduce_init([torch.zeros(4)] * 9)
 
 
-@pytest.mark.parametrize("n", MEMBERS)
-def test_ring_shift_matches_ppermute(cpu_devices, n):
-    host = _host(n, seed=100 + n)
+@pytest.mark.parametrize("n, shape", [
+    # The ramp (ragged against every n), the main path's one element a
+    # member (the fused battery's and ici_ring_probe's ring), and 2-D.
+    *(pytest.param(n, (ELEMS,), id=str(n)) for n in MEMBERS),
+    *(pytest.param(n, (1,), id=f"{n}-one") for n in MEMBERS),
+    *(pytest.param(n, (3, 67), id=f"{n}-3x67") for n in MEMBERS),
+])
+def test_ring_shift_matches_ppermute(cpu_devices, n, shape):
+    host = _host(n, seed=100 + n, elems=math.prod(shape)).reshape(n, *shape)
     perm = [(i, (i + 1) % n) for i in range(n)]
     want = _jax_collective(
         cpu_devices[:n], lambda x: jax.lax.ppermute(x, "ici", perm), host
     )
     got = collectives.ring_shift(_members(host))
     for j in range(n):
+        assert got[j].shape == shape
         np.testing.assert_array_equal(_bits(got[j].numpy()), _bits(want[j]))
 
 
@@ -459,6 +468,124 @@ def test_peer_reduce_checks_its_inputs():
         collectives.all_reduce([torch.zeros(4), torch.zeros(5)])
     with pytest.raises(ValueError):
         collectives.ring_shift([])
+
+
+class _SeenOnCuda(torch.Tensor):
+    """A CPU tensor whose device reads as ``cuda:0`` (``get_device``,
+    ``device``, ``is_cpu``): a CPU/CUDA mix without a card."""
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        if func is torch.Tensor.get_device:
+            return 0
+        if getattr(func, "__name__", None) == "__get__":
+            attr = getattr(getattr(func, "__self__", None), "__name__", None)
+            if attr == "device":
+                return torch.device("cuda", 0)
+            if attr == "is_cpu":
+                return False
+        return super().__torch_function__(func, types, args, kwargs or {})
+
+
+def _on_cuda(t):
+    return t.as_subclass(_SeenOnCuda)
+
+
+# (dst, sources, offset, the error and today's message).
+_REDUCE_FAULTS = {
+    "dst-not-a-tensor": (lambda: 4.0, lambda: [torch.zeros(16)], 0,
+                         TypeError, "peer_reduce: dst: want a tensor, got "
+                         "float"),
+    "dst-wrong-dtype": (lambda: torch.empty(4, dtype=torch.float64),
+                        lambda: [torch.zeros(16)], 0, TypeError,
+                        "peer_reduce: dst: want torch.float32, got "
+                        "torch.float64"),
+    "source-not-a-tensor": (lambda: torch.empty(4),
+                            lambda: [torch.zeros(16), 3.0], 0, TypeError,
+                            "peer_reduce: source 1: want a tensor, got "
+                            "float"),
+    "source-wrong-dtype": (lambda: torch.empty(4),
+                           lambda: [torch.zeros(16, dtype=torch.float64)], 0,
+                           TypeError, "peer_reduce: source 0: want "
+                           "torch.float32, got torch.float64"),
+    "source-non-contiguous": (lambda: torch.empty(4),
+                              lambda: [torch.zeros(16), torch.zeros(32)[::2]],
+                              0, ValueError,
+                              "peer_reduce: source 1: must be contiguous"),
+    "source-empty": (lambda: torch.empty(4), lambda: [torch.zeros(0)], 0,
+                     ValueError, "peer_reduce: source 0: is empty"),
+    "source-short-at-offset": (lambda: torch.empty(4),
+                               lambda: [torch.zeros(18), torch.zeros(16)], 13,
+                               ValueError, "peer_reduce: source 1 has 16 "
+                               "elements, want at least 13 + 4"),
+    "negative-offset": (lambda: torch.empty(4), lambda: [torch.zeros(16)], -1,
+                        ValueError, "peer_reduce: negative offset -1"),
+    "no-sources": (lambda: torch.empty(4), lambda: [], 0, ValueError,
+                   "peer_reduce: want 1 to 8 sources, got 0"),
+    "nine-sources": (lambda: torch.empty(4), lambda: [torch.zeros(16)] * 9, 0,
+                     ValueError, "peer_reduce: want 1 to 8 sources, got 9"),
+    "cuda-source-cpu-dst": (lambda: torch.empty(4),
+                            lambda: [torch.zeros(16),
+                                     _on_cuda(torch.zeros(16))],
+                            0, ValueError, "peer_reduce: source 1 is on "
+                            "cuda:0, dst on cpu"),
+    "cpu-source-cuda-dst": (lambda: _on_cuda(torch.empty(4)),
+                            lambda: [torch.zeros(16)], 0, ValueError,
+                            "peer_reduce: source 0 is on cpu, dst on cuda:0"),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(_REDUCE_FAULTS))
+def test_peer_reduce_fast_check_and_fault_path_agree(monkeypatch, fault):
+    """K4's wrapper checks in a few C-level passes and, when they fail,
+    lets ``_check_reduce`` name the fault: the message is the fault
+    path's own, and nothing reaches the plain version or the library."""
+    make_dst, make_srcs, off, error, message = _REDUCE_FAULTS[fault]
+    reached = []
+    monkeypatch.setattr(collectives, "peer_reduce_plain",
+                        lambda *a: reached.append(a))
+    monkeypatch.setattr(collectives, "load_library",
+                        lambda: reached.append("library"))
+    with pytest.raises(error) as fast:
+        collectives.peer_reduce(make_dst(), make_srcs(), off)
+    with pytest.raises(error) as slow:
+        collectives._check_reduce(make_dst(), make_srcs(), off)
+    assert str(fast.value) == str(slow.value) == message
+    assert reached == []
+
+
+@pytest.mark.parametrize("k, off, divisor", [(1, 0, 1.0), (2, 3, 2.0),
+                                             (5, 1, 3.0), (8, 12, 8.0)])
+def test_peer_reduce_good_call_reaches_the_plain_version(monkeypatch, k, off,
+                                                         divisor):
+    host = _host(k, seed=40 + k, elems=16 + off)
+    srcs = _members(host)
+    seen = []
+    real = collectives.peer_reduce_plain
+
+    def plain(*args):
+        seen.append(args)
+        return real(*args)
+
+    monkeypatch.setattr(collectives, "peer_reduce_plain", plain)
+    dst = torch.empty(16)
+    assert collectives.peer_reduce(dst, iter(srcs), off, divisor) is dst
+    assert len(seen) == 1 and seen[0][0] is dst and seen[0][2:] == (off,
+                                                                   divisor)
+    assert [s is t for s, t in zip(seen[0][1], srcs)] == [True] * k
+    want = real(torch.empty(16), srcs, off, divisor)
+    np.testing.assert_array_equal(_bits(dst.numpy()), _bits(want.numpy()))
+
+
+def test_plan_kinds_match_the_cuda_source():
+    """The plan kinds have one value on both sides of the binding."""
+    src = (Path(collectives.__file__).parent / "csrc" /
+           "collective_kernels.cu").read_text()
+    kinds = dict(re.findall(r"\b(k\w+) = (\d+)",
+                            re.search(r"enum Kind \{([^}]*)\}", src)[1]))
+    assert kinds == {"kAllReduce": str(collectives.ALL_REDUCE),
+                     "kAllGather": str(collectives.ALL_GATHER),
+                     "kRingShift": str(collectives.RING_SHIFT)}
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 5, 8, 10])

@@ -455,6 +455,43 @@ def test_peer_reduce_matches_plain_version_on_the_card():
 
 
 @pytest.mark.cuda
+def test_ring_shift_matches_plain_version_on_the_card(monkeypatch):
+    """``ring_shift`` on the card is one plan launch a call (one library
+    call, n K4 nodes) and equals its plain version bit for bit: one
+    element a member (the main path's), 2^20 and a 2-D shape; more than
+    ``MAX_SOURCES`` members are refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    calls = []
+    real = collectives._RoundPlan.launch
+
+    def launch(self, packed, divisor):
+        calls.append(self)
+        return real(self, packed, divisor)
+
+    monkeypatch.setattr(collectives._RoundPlan, "launch", launch)
+    for n in (2, 3, 4, 8):
+        for shape in ((1,), (1 << 20,), (3, 67)):
+            shards = [torch.randn(shape, device=dev, generator=gen)
+                      for _ in range(n)]
+            cpu = [s.cpu() for s in shards]
+            before, calls[:] = peer_reduce.launches, []
+            got = ring_shift(shards)
+            assert len(calls) == 1 and peer_reduce.launches == before + n
+            want = ring_shift(cpu)  # the plain version, on the CPU
+            torch.cuda.synchronize()
+            for j in range(n):
+                assert got[j].shape == shape and got[j].device == dev
+                assert torch.equal(got[j].cpu().view(torch.int32),
+                                   want[j].view(torch.int32))
+    with pytest.raises(ValueError, match="at most 8 members"):
+        ring_shift([torch.zeros(1, device=dev)] * 9)
+
+
+@pytest.mark.cuda
 def test_peer_gather_and_rounds_match_plain_versions_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernels have no CPU mode")
