@@ -107,18 +107,27 @@ Phases:
    peer (reachability passes, the collective fails naming ``ring-c``);
    and a one-rank NCCL world in this process, where the probe must fail
    closed.  NCCL refuses two ranks on one GPU, so the cross-process NCCL
-   all-reduce is not verified on a one-card machine.
+   all-reduce is not verified on a one-card machine;
+12. the port's roll: the CUDA preflight (``hostenv.probe_cuda_init``,
+   in a child), ``entry()``'s loss on the card against the CPU's with the
+   same weights and batch, ``dryrun_multichip(8)`` (a child under its
+   watchdog), then the bench's sequential roll of four HGX H100 nodes
+   with the attribution check (``bench.roll``: every node's agent over 8
+   members of the card, the bench-width canary on pool-0, the H100
+   floors at the gate): every node ends ``upgrade-done``, one at a time,
+   the canary's downtime is under 120 s and the check names pool-1; its
+   wall time, downtime, node windows and lock waits are printed.
 
-Kernel launch counts are zeroed just before each path of phases 4-11
+Kernel launch counts are zeroed just before each path of phases 4-12
 (unfused, fused cold, fused warm, agent, local prober, the collective
 paths, the ring paths, the battery with the deep flag, the canary, the
 sharded and elastic canaries, the unfused agent of the labelled node,
-the network-path checks) and read just after it: each path names the
-kernels it must launch (K1 and K2 on the battery paths, K1's verifying
-pass as well on the fused ones, K3 on the ring
-paths, K4 and K5 on the all-reduce, sharded and 8-member network paths,
-K4 on the ring shift's: 2 x 8 on the ring probe's), and no path may have
-fallen back from the fused battery.  K4's launches are also split by
+the network-path checks, the roll) and read just after it: each path
+names the kernels it must launch (K1 and K2 on the battery paths, K1's
+verifying pass as well on the fused ones, K3 on the ring
+paths, K4 and K5 on the all-reduce, sharded, 8-member network and roll
+paths, K4 on the ring shift's: 2 x 8 on the ring probe's), and no path
+may have fallen back from the fused battery.  K4's launches are also split by
 shape (k, len), from the plans' rounds.  A child process that fails or outlives its time fails
 the run.
 Any failure exits non-zero and prints no result; so does a machine
@@ -135,6 +144,7 @@ import os
 import socket
 import subprocess
 import sys
+import threading
 import time
 from datetime import timedelta
 from pathlib import Path
@@ -198,6 +208,12 @@ DCN_WARM_CALLS = 20
 # Readings of each ICI probe in phase 7 beside its path's one.
 ICI_READINGS = 10
 TURN_ARG = "--turn"
+# Phase 12: entry()'s loss on the card against the CPU's, the same
+# weights and batch: 1e-3 absolute, tests/test_torch_canary.py's loss
+# limit against JAX.
+ENTRY_LOSS_ATOL = 1e-3
+PREFLIGHT_TIMEOUT_S = 120
+DRYRUN_TIMEOUT_S = 300
 # The buffer written between calls timed with a cold L2 (50 MB).
 FLUSH_BYTES = 256 * 1024 * 1024
 
@@ -529,6 +545,9 @@ def main() -> int:
     from k8s_operator_libs_tpu_torch.kernels import build
     from k8s_operator_libs_tpu_torch.kernels import collectives
     from k8s_operator_libs_tpu_torch.upgrade import UpgradeKeys
+    from k8s_operator_libs_tpu_torch import bench as bench_mod
+    from k8s_operator_libs_tpu_torch import entry as entry_mod
+    from k8s_operator_libs_tpu_torch import hostenv
     from k8s_operator_libs_tpu_torch.workloads import canary as C
     from k8s_operator_libs_tpu_torch.workloads import ring_attention as R
 
@@ -2127,10 +2146,83 @@ def main() -> int:
             f"one-rank NCCL world: {one.detail}")
     require(nccl_sum == [0.0, 1.0], f"NCCL all-reduce of one rank: {nccl_sum}")
 
+    # -- 12. the port's roll: preflight, entry, dry run, sequential roll ----
+    t12 = time.perf_counter()
+    pre = hostenv.probe_cuda_init(PREFLIGHT_TIMEOUT_S)
+    print(f"[roll] CUDA preflight in a child: ok={pre['ok']} "
+          f"{pre['device_name']} x{pre['count']} in {pre['seconds']:.2f} s "
+          f"{pre['error'] or ''}", flush=True)
+    require(pre["ok"] and pre["device_name"] == name
+            and pre["count"] == count, f"CUDA preflight: {pre}")
+    fn, (params, batch) = entry_mod.entry()
+    require(batch.device.type == "cuda", f"entry() batch on {batch.device}")
+    loss_card = float(fn(params, batch))
+    cpu = torch.device("cpu")
+    loss_cpu = float(fn(C.params_from_numpy(C.params_to_numpy(params), cpu),
+                        batch.to(cpu)))
+    print(f"[roll] entry(): loss on the card {loss_card:.6f}, on the CPU with "
+          f"the same weights and batch {loss_cpu:.6f}, |diff| "
+          f"{abs(loss_card - loss_cpu):.2e}", flush=True)
+    require(abs(loss_card - loss_cpu) <= ENTRY_LOSS_ATOL,
+            f"entry() loss: card {loss_card} vs CPU {loss_cpu}")
+    t0 = time.perf_counter()
+    entry_mod.dryrun_multichip(ICI_MEMBERS, timeout_s=DRYRUN_TIMEOUT_S)
+    print(f"[roll] dryrun_multichip({ICI_MEMBERS}) exited 0 in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    torch.cuda.empty_cache()
+    roll_canary = C.CanaryRunner(bench_mod.BENCH_CANARY, device=dev)
+    for _ in range(3):
+        roll_canary.run_step()
+    pool_members = entry_mod.members_of(bench_mod.GPUS_PER_NODE, "cuda")
+    roll_fallbacks = fused.battery_stats()["fallbacks"]
+    seq = on_path(
+        "sequential roll, 4 HGX nodes, attribution check",
+        lambda: bench_mod.roll(pool_members, roll_canary, threading.Lock(),
+                               pipeline=False, attribution=True),
+        fused_kernels + collective_kernels,
+    )
+    finals = {}
+    for _, node_name, state in seq["transitions"]:
+        finals[node_name] = state
+    lock = seq["lock"]
+    print(f"[roll] sequential roll of {bench_mod.N_NODES} HGX H100 nodes "
+          f"(agents over {len(pool_members)} members of the card, bench-width "
+          f"canary on pool-0): complete={seq['complete']} in "
+          f"{seq['wall_s']:.3f} s, {seq['ticks']} passes; canary downtime "
+          f"{seq['downtime_s']:.3f} s over {seq['canary_steps']} steps "
+          f"(median step {seq['canary_perf'].get('median_step_s', 0) * 1e3:.3f}"
+          f" ms); node windows "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in
+                      seq["node_windows_s"].items() if v is not None)
+          + f"; {seq['batteries']} agent batteries, {seq['battery_s']:.3f} s; "
+          f"lock wait {lock['wait_total_s']:.3f} s in all (share "
+          f"{lock['wait_share']:.4f}), {lock['wait_in_longest_gap_s']:.3f} s "
+          f"of the longest gap; on {card}", flush=True)
+    print(f"[roll] attribution check: {seq['attribution']}", flush=True)
+    require(seq["complete"] and finals == {
+        f"pool-{i}": "upgrade-done" for i in range(bench_mod.N_NODES)
+    }, f"sequential roll: complete={seq['complete']} states {finals} "
+       f"{seq.get('final_states')}")
+    require(fused.battery_stats()["fallbacks"] == roll_fallbacks,
+            f"fused fallbacks on the roll: {fused.battery_stats()}")
+    require(seq["canary_error"] is None,
+            f"the canary failed during the roll: {seq['canary_error']}")
+    require(math.isfinite(seq["downtime_s"])
+            and 0 < seq["downtime_s"] < bench_mod.DOWNTIME_BUDGET_S,
+            f"canary downtime {seq['downtime_s']}")
+    require(seq["max_concurrent_unavailable"] == 1,
+            f"nodes out at once: {seq['max_concurrent_unavailable']}")
+    require(seq["attribution"]["ok"]
+            and seq["attribution"]["detail"] == "no health report from node "
+            "pool-1", f"attribution check: {seq['attribution']}")
+    del roll_canary
+    print(f"[roll] phase 12 took {time.perf_counter() - t12:.2f} s",
+          flush=True)
+
     print("[launches] main path total: "
           + ", ".join(f"{k} {n}" for k, n in launches.items()), flush=True)
 
-    # -- 12. kernel line, card, result --------------------------------------
+    # -- 13. kernel line, card, result --------------------------------------
     source = {
         "stream_increment_":
             "k8s_operator_libs_tpu_torch/kernels/csrc/battery_kernels.cu",

@@ -11,7 +11,14 @@ peer reduction and gather across the GPUs of one host); the network-path
 artifact gate (:mod:`.artifacts`); and the workloads (:mod:`.workloads`):
 the canary train step, on one device or sharded over the host's GPUs,
 and ring attention, whose block step is a hand-written CUDA kernel
-(:mod:`.kernels`).
+(:mod:`.kernels`).  It carries its own copy of the JAX package's
+jax-free upgrade engine (:mod:`.upgrade`, :mod:`.k8s` with
+``FakeCluster``, :mod:`.api`, :mod:`.planning`, :mod:`.obs` and the
+rest), held to the reference's code by a test, and its own entry points:
+:mod:`.hostenv` (a CUDA preflight in a killable child), :mod:`.entry`
+(the canary's loss and a multi-member dry run) and :mod:`.bench` (a
+driver roll across an HGX H100 pool with the canary's downtime as its
+headline).
 """
 
 from k8s_operator_libs_tpu_torch.health import (

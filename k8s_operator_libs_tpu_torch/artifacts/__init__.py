@@ -1,14 +1,34 @@
-"""Per-artifact validation gates of multi-artifact upgrade stacks.
+"""Multi-artifact upgrade DAGs: composable driver stacks rolled under
+one cordon/drain window.  See docs/multi-artifact-dags.md."""
 
-Counterpart of the gate half of ``k8s_operator_libs_tpu.artifacts``; the
-DAG half is control plane and stays with the upgrade engine, whose
-``artifact_gate_prober`` slot takes :class:`NetworkPathGateProber`
-duck-typed.
-"""
-
+from k8s_operator_libs_tpu_torch.artifacts.dag import (
+    ArtifactDAG,
+    ArtifactDAGError,
+    GATE_MODES,
+    GATE_NETWORK_PATH,
+    GATE_NONE,
+    SKEW_LOCKSTEP,
+    SKEW_MODES,
+    SKEW_PINNED_ORDER,
+    artifact_dag_of,
+    constraint_satisfied,
+)
 from k8s_operator_libs_tpu_torch.artifacts.gates import (
     GateResult,
     NetworkPathGateProber,
 )
 
-__all__ = ["GateResult", "NetworkPathGateProber"]
+__all__ = [
+    "ArtifactDAG",
+    "ArtifactDAGError",
+    "GATE_MODES",
+    "GATE_NETWORK_PATH",
+    "GATE_NONE",
+    "GateResult",
+    "NetworkPathGateProber",
+    "SKEW_LOCKSTEP",
+    "SKEW_MODES",
+    "SKEW_PINNED_ORDER",
+    "artifact_dag_of",
+    "constraint_satisfied",
+]

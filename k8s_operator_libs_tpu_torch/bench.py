@@ -1,0 +1,689 @@
+"""The port's end-to-end benchmark: a driver roll across an HGX H100 pool.
+
+Run from the root of a checkout, on a machine with a CUDA card:
+
+    python -m k8s_operator_libs_tpu_torch.bench
+
+The headline of the JAX package's ``bench.py``, on the port's engine,
+prober, agents and canary:
+
+- **preflight**: :func:`hostenv.probe_cuda_init`.  When CUDA does not
+  come up the bench prints its line with ``value`` 0.0 and ``error``
+  set and exits non-zero; it never reruns on the CPU, which would hide
+  the card's failure behind a number from another device;
+- **battery**: ``run_host_probe`` at production size (n 4096 bf16, a
+  1 GiB stream, 4 MiB all-reduce members) over one node's 8 members,
+  unfused cold then warm (the TFLOPS, GB/s and bus bandwidth the floors
+  gate on), then fused cold then warm (the warm-up cache's miss, then
+  its hit);
+- **canary**: ``CanaryRunner`` at the JAX bench's width (vocab 1024,
+  d_model 1024, 16 heads, 8 layers, d_ff 4096, seq 512, batch 32) on the
+  first card;
+- **pool**: four HGX H100 nodes ``pool-0`` … ``pool-3`` on the port's
+  ``FakeCluster`` (1 ms API latency, 50 ms read-cache lag), labelled as
+  GPU Feature Discovery labels one (``nvidia.com/gpu.product``
+  ``NVIDIA-H100-80GB-HBM3``, ``nvidia.com/gpu.count`` 8) and in no
+  slice, so the engine makes each node its own upgrade group; a driver
+  DaemonSet whose template is bumped;
+- **gate**: each node's own ``HealthAgent`` over 8 members (the board's
+  GPUs; ``cuda:0`` eight times on a one-card host) publishes its
+  report, and ``NodeReportProber`` reads it with the H100 SXM profile's
+  floors (``hbm_floor_fraction=0.5``, ``generation_floors=True``);
+- **rolls**: sequential (``maxParallelUpgrades`` 1, the validation gate
+  holding the slot) with the canary training on ``pool-0`` and paused
+  while that node is cordoned; the attribution check (one node's missing
+  report must fail that node's gate by name); then pipelined validation.
+
+Headline: the canary's longest gap between steps during the sequential
+roll, against the 120 s budget; when the roll did not complete, or
+``pool-0`` is still out at the end, the open interval since its last
+step counts.  ``vs_baseline`` is 120 / value, and 0.0 when the roll did
+not complete.
+
+One card stands in for the pool, so the canary and every node's agent
+share it.  So that neither measures the other's contention, the
+canary's steps and the agents' batteries take one lock in turn; the
+part of the canary's longest gap spent waiting on it is recorded beside
+the downtime (on a fleet each node has its own GPUs and nothing waits).
+
+Output: one JSON line of at most 2 KB on stdout (:mod:`.bench_io`), the
+full record in ``build/bench_torch/details.json``, progress on stderr.
+"""
+
+from __future__ import annotations
+
+import sys
+import threading
+import time
+from dataclasses import asdict, dataclass
+from pathlib import Path
+from typing import Optional, Sequence
+
+from k8s_operator_libs_tpu_torch.api import (
+    DrainSpec,
+    SliceHealthGateSpec,
+    TPUUpgradePolicySpec,
+)
+from k8s_operator_libs_tpu_torch.bench_io import emit
+from k8s_operator_libs_tpu_torch.entry import members_of
+from k8s_operator_libs_tpu_torch.health import NodeReportProber, run_host_probe
+from k8s_operator_libs_tpu_torch.health.agent import HealthAgent
+from k8s_operator_libs_tpu_torch.health.fused import battery_stats
+from k8s_operator_libs_tpu_torch.health.report import fused_battery_telemetry
+from k8s_operator_libs_tpu_torch.health.slice_prober import (
+    GPU_COUNT_LABELS,
+    GPU_PRODUCT_LABELS,
+)
+from k8s_operator_libs_tpu_torch.hostenv import probe_cuda_init
+from k8s_operator_libs_tpu_torch.k8s import (
+    ContainerStatus,
+    DaemonSet,
+    FakeCluster,
+    Node,
+    NotFoundError,
+    ObjectMeta,
+    OwnerReference,
+    Pod,
+    PodPhase,
+)
+from k8s_operator_libs_tpu_torch.k8s.objects import (
+    DaemonSetSpec,
+    DaemonSetStatus,
+    LabelSelectorSpec,
+    PodSpec,
+    PodStatus,
+    PodTemplateSpec,
+)
+from k8s_operator_libs_tpu_torch.upgrade import (
+    ClusterUpgradeStateManager,
+    UpgradeKeys,
+)
+from k8s_operator_libs_tpu_torch.workloads.canary import (
+    CanaryConfig,
+    CanaryRunner,
+)
+
+DOWNTIME_BUDGET_S = 120.0  # the north star: under 2 min of interruption
+N_NODES = 4
+GPUS_PER_NODE = 8
+GPU_PRODUCT = "NVIDIA-H100-80GB-HBM3"
+# Per-roll watchdog.  The gate's timeout sits well below it, so a gate
+# that never passes ends the roll as upgrade-failed inside the window.
+ROLL_BUDGET_S = 240.0
+VALIDATION_TIMEOUT_S = 90
+PREFLIGHT_TIMEOUT_S = 120.0
+METRIC_NAME = (
+    "torch workload downtime during node-atomic driver rolling upgrade "
+    "(4-node HGX H100 pool, real probe gate)"
+)
+DETAILS_PATH = (
+    Path(__file__).resolve().parents[1] / "build" / "bench_torch"
+    / "details.json"
+)
+# The NVIDIA GPU operator's keys ("nvidia.com/gpu-driver-upgrade-state").
+KEYS = UpgradeKeys(driver_name="gpu", domain="nvidia.com")
+DRIVER_LABELS = {"app": "nvidia-driver-daemonset"}
+NAMESPACE = "gpu-operator"
+# The JAX bench's canary (bench.py:1177-1180): 102,777,856 parameters.
+BENCH_CANARY = CanaryConfig(
+    vocab=1024, d_model=1024, n_heads=16, n_layers=8, d_ff=4096,
+    seq_len=512, batch=32,
+)
+
+
+@dataclass(frozen=True)
+class BatterySize:
+    """The problem sizes of one agent battery."""
+
+    matmul_n: int
+    hbm_mib: int
+    allreduce_elems: int
+
+
+# The JAX bench's agent sizes: a node in flight probes with the 1 GiB
+# production stream, long enough to average over a co-tenant; the
+# background refresh keeps the stream and shrinks the matmul and the
+# all-reduce.
+IN_FLIGHT = BatterySize(1024, 1024, 1 << 16)
+BACKGROUND = BatterySize(256, 1024, 1 << 12)
+# A bounded sustained window: a 50 %-of-spec verdict needs no deep
+# escalation, and a long battery would stall the canary on the shared
+# card.
+AGENT_MAX_ITERS = 256
+# The states in which a node is in flight (queued nodes sit at
+# upgrade-required and refresh in the background).
+ACTIVE_STATES = frozenset({
+    "cordon-required", "wait-for-jobs-required", "pod-deletion-required",
+    "drain-required", "pod-restart-required", "validation-required",
+})
+
+
+def log(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
+class _Fleet:
+    """Builds the pool's driver DaemonSet, nodes and driver pods in a
+    ``FakeCluster`` (the JAX package's test fixtures, which the port does
+    not import, for GPU nodes)."""
+
+    def __init__(self, client: FakeCluster) -> None:
+        self.client = client
+
+    def daemon_set(self, hash_suffix: str, revision: int) -> DaemonSet:
+        ds = DaemonSet(
+            metadata=ObjectMeta(name="nvidia-driver-daemonset",
+                                namespace=NAMESPACE,
+                                labels=dict(DRIVER_LABELS)),
+            spec=DaemonSetSpec(
+                selector=LabelSelectorSpec(dict(DRIVER_LABELS)),
+                template=PodTemplateSpec(labels=dict(DRIVER_LABELS)),
+            ),
+            status=DaemonSetStatus(desired_number_scheduled=0),
+        )
+        self.client.create_daemon_set(ds)
+        self.client.add_daemon_set_revision(ds, hash_suffix, revision)
+        return ds
+
+    def bump_daemon_set_template(self, ds: DaemonSet, hash_suffix: str,
+                                 revision: int) -> None:
+        """Record a new template revision (the roll's trigger)."""
+        self.client.add_daemon_set_revision(ds, hash_suffix, revision)
+
+    def gpu_node(self, name: str) -> Node:
+        """An HGX H100 node as GPU Feature Discovery labels it."""
+        node = Node(metadata=ObjectMeta(name=name, labels={
+            GPU_PRODUCT_LABELS[0]: GPU_PRODUCT,
+            GPU_COUNT_LABELS[0]: str(GPUS_PER_NODE),
+        }))
+        self.client.create_node(node)
+        return node
+
+    def _pod(self, name: str, node_name: str, hash_suffix: str,
+             owners: list) -> Pod:
+        labels = dict(DRIVER_LABELS, **{"controller-revision-hash":
+                                        hash_suffix})
+        return Pod(
+            metadata=ObjectMeta(name=name, namespace=NAMESPACE,
+                                labels=labels, owner_references=owners),
+            spec=PodSpec(node_name=node_name),
+            status=PodStatus(phase=PodPhase.RUNNING,
+                             container_statuses=[ContainerStatus(ready=True)]),
+        )
+
+    def driver_pod(self, node: Node, ds: DaemonSet, hash_suffix: str) -> Pod:
+        """A running driver pod of ``ds`` on ``node``."""
+        owner = OwnerReference(name=ds.name, uid=ds.metadata.uid,
+                               kind="DaemonSet")
+        pod = self._pod(f"driver-{node.name}", node.name, hash_suffix,
+                        [owner])
+        self.client.create_pod(pod)
+        ds.status.desired_number_scheduled += 1
+        self.client.update_daemon_set(ds)
+        return pod
+
+    def auto_recreate_driver_pods(self, ds: DaemonSet,
+                                  hash_suffix: str) -> None:
+        """The DaemonSet controller: a deleted driver pod of ``ds`` comes
+        back at ``hash_suffix``."""
+
+        def hook(pod: Pod) -> None:
+            owners = pod.metadata.owner_references
+            if owners and owners[0].uid == ds.metadata.uid:
+                self.client.create_pod(self._pod(
+                    pod.name, pod.spec.node_name, hash_suffix, list(owners)
+                ))
+
+        self.client.on_pod_deleted(hook)
+
+
+def longest_gap(step_times: Sequence[float], window_start: float,
+                until: Optional[float] = None) -> tuple[float, int]:
+    """``(seconds, index)``: the longest interval between the window's
+    start and the completed steps, each to the next, and the index of the
+    step that closed it.  With ``until`` (the roll did not complete, or
+    the workload is still disrupted) the open interval since the last
+    step counts too, with index -1."""
+    gap, index, last = 0.0, -1, window_start
+    for i, t in enumerate(step_times):
+        if t - last > gap:
+            gap, index = t - last, i
+        last = t
+    if until is not None and until - last > gap:
+        return until - last, -1
+    return gap, index
+
+
+class RollHarness:
+    """One fresh cluster, engine and agent fleet for one roll.
+
+    ``members``: the devices of one node's board, on which every node's
+    agent runs its battery; ``device_lock``: taken around each battery
+    (and by the canary around each step)."""
+
+    def __init__(
+        self,
+        members: Sequence,
+        pipeline: bool,
+        device_lock: threading.Lock,
+        sizes: tuple[BatterySize, BatterySize] = (IN_FLIGHT, BACKGROUND),
+    ) -> None:
+        self.lock = device_lock
+        self.in_flight_size, self.background_size = sizes
+        self.cluster = FakeCluster(api_latency_s=0.001, cache_lag_s=0.05)
+        fleet = _Fleet(self.cluster)
+        ds = fleet.daemon_set("v1", 1)
+        self.nodes = [fleet.gpu_node(f"pool-{i}") for i in range(N_NODES)]
+        for node in self.nodes:
+            fleet.driver_pod(node, ds, "v1")
+        fleet.bump_daemon_set_template(ds, "v2", 2)
+        fleet.auto_recreate_driver_pods(ds, "v2")
+        self.mgr = ClusterUpgradeStateManager(
+            self.cluster, keys=KEYS, poll_interval_s=0.02, poll_timeout_s=5.0,
+        )
+        self.prober = NodeReportProber(
+            KEYS,
+            revision_resolver=(
+                self.mgr.pod_manager.get_daemonset_controller_revision_hash
+            ),
+            hbm_floor_fraction=0.5,
+            generation_floors=True,
+        )
+        self.mgr.with_validation_enabled(self.prober)
+        self.policy = TPUUpgradePolicySpec(
+            auto_upgrade=True,
+            max_parallel_upgrades=1,
+            drain_spec=DrainSpec(enable=True, timeout_second=30),
+            health_gate=SliceHealthGateSpec(
+                enable=True, timeout_second=VALIDATION_TIMEOUT_S
+            ),
+            pipeline_validation=pipeline,
+            dcn_anti_affinity=True,
+        )
+        # Every node's own agent over the board's members.
+        self.agents = [
+            HealthAgent(self.cluster, node.name, KEYS, driver_revision="v2",
+                        devices=list(members), max_iters=AGENT_MAX_ITERS)
+            for node in self.nodes
+        ]
+        # (node, in flight, seconds) of every battery run.
+        self.batteries: list[tuple[str, bool, float]] = []
+        self._stop = threading.Event()
+        self.max_concurrent_unavailable = 0
+
+    # -- the agents --------------------------------------------------------
+
+    def run_agent(self, agent: HealthAgent, in_flight: bool) -> None:
+        size = self.in_flight_size if in_flight else self.background_size
+        agent.matmul_n = size.matmul_n
+        agent.hbm_mib = size.hbm_mib
+        agent.allreduce_elems = size.allreduce_elems
+        with self.lock:
+            t0 = time.monotonic()
+            agent.run_once()
+            self.batteries.append(
+                (agent.node_name, in_flight, time.monotonic() - t0)
+            )
+
+    def sweep_agents_once(self) -> None:
+        for agent in self.agents:
+            self.run_agent(agent, in_flight=False)
+
+    def _agent_loop(self) -> None:
+        # A node in flight re-probes every cycle, as its own idle board
+        # would; the others refresh in turn with the background battery.
+        background = 0
+        while not self._stop.is_set():
+            states = self.node_states()
+            in_flight = [a for a in self.agents
+                         if states.get(a.node_name, "") in ACTIVE_STATES]
+            for agent in in_flight:
+                if self._stop.is_set():
+                    return
+                self.run_agent(agent, in_flight=True)
+            agent = self.agents[background % len(self.agents)]
+            background += 1
+            if agent not in in_flight and not self._stop.is_set():
+                self.run_agent(agent, in_flight=False)
+            time.sleep(0.05)
+
+    # -- unavailability ----------------------------------------------------
+
+    def node_disrupted(self, index: int) -> bool:
+        try:
+            return self.cluster.get_node(
+                self.nodes[index].name, cached=False
+            ).spec.unschedulable
+        except NotFoundError:
+            return True
+
+    def _sampler_loop(self) -> None:
+        while not self._stop.is_set():
+            down = sum(self.node_disrupted(i) for i in range(N_NODES))
+            self.max_concurrent_unavailable = max(
+                self.max_concurrent_unavailable, down
+            )
+            time.sleep(0.02)
+
+    def node_states(self) -> dict[str, str]:
+        return {
+            n.name: self.cluster.get_node(n.name, cached=False).labels.get(
+                KEYS.state_label, ""
+            )
+            for n in self.nodes
+        }
+
+    # -- the attribution check ---------------------------------------------
+
+    def attribution_check(self) -> dict:
+        """Remove ``pool-1``'s report: the gate of its group must fail and
+        name that node.  The report is restored afterwards."""
+        victim = self.nodes[1].name
+        self.cluster.patch_node_annotations(
+            victim, {KEYS.health_report_annotation: None}
+        )
+        # The engine reads through the lagged cache: let the removal show.
+        time.sleep(0.2)
+        state = self.mgr.build_state(NAMESPACE, DRIVER_LABELS)
+        group = next(g for g in state.all_groups()
+                     if victim in (n.name for n in g.nodes))
+        verdict = self.prober.probe(group)
+        self.run_agent(self.agents[1], in_flight=False)
+        return {"ok": (not verdict.healthy) and victim in verdict.detail,
+                "victim": victim, "detail": verdict.detail}
+
+    # -- the roll ------------------------------------------------------------
+
+    def run(self) -> dict:
+        """One roll, to every node ``upgrade-done`` or ``ROLL_BUDGET_S``."""
+        threads = [
+            threading.Thread(target=self._agent_loop, daemon=True),
+            threading.Thread(target=self._sampler_loop, daemon=True),
+        ]
+        for t in threads:
+            t.start()
+        t0 = time.monotonic()
+        ticks = 0
+        done = False
+        last: dict[str, str] = {}
+        transitions: list[tuple[float, str, str]] = []
+        try:
+            while time.monotonic() - t0 < ROLL_BUDGET_S:
+                ticks += 1
+                try:
+                    state = self.mgr.build_state(NAMESPACE, DRIVER_LABELS)
+                except NotFoundError:
+                    # Cache lag on fresh objects: requeue like a reconciler.
+                    time.sleep(0.05)
+                    continue
+                self.mgr.apply_state(state, self.policy)
+                self.mgr.wait_for_async_work(60.0)
+                states = self.node_states()
+                for name, s in states.items():
+                    if last.get(name) != s:
+                        t_rel = time.monotonic() - t0
+                        transitions.append((round(t_rel, 3), name, s))
+                        gate = self.mgr.validation_manager.last_rejection
+                        log(f"  t={t_rel:7.2f}s {name}: -> {s or '<none>'}"
+                            + (f"  [gate: {gate}]" if gate else ""))
+                        last[name] = s
+                if all(s == "upgrade-done" for s in states.values()):
+                    done = True
+                    break
+                time.sleep(0.02)
+        finally:
+            wall_s = time.monotonic() - t0
+            self._stop.set()
+            # A leaked agent would keep using the card after the roll.
+            for t in threads:
+                t.join(120.0)
+                if t.is_alive():
+                    raise RuntimeError(
+                        "a harness thread did not stop; what follows would "
+                        "measure its contention"
+                    )
+        result = {
+            "complete": done,
+            "wall_s": wall_s,
+            "ticks": ticks,
+            "max_concurrent_unavailable": self.max_concurrent_unavailable,
+            "node_windows_s": node_windows(transitions),
+            "transitions": transitions,
+            "batteries": len(self.batteries),
+            "battery_s": sum(s for _, _, s in self.batteries),
+        }
+        if not done:
+            result["final_states"] = self.node_states()
+        return result
+
+
+def node_windows(transitions) -> dict[str, Optional[float]]:
+    """Each node's seconds in flight: from its first in-flight state to
+    ``upgrade-done`` (None when it never got there)."""
+    start: dict[str, float] = {}
+    out: dict[str, Optional[float]] = {}
+    for t, name, state in transitions:
+        out.setdefault(name, None)
+        if state in ACTIVE_STATES:
+            start.setdefault(name, t)
+        elif state == "upgrade-done" and name in start:
+            out[name] = t - start[name]
+    return out
+
+
+def roll_with_canary(harness: RollHarness, canary: CanaryRunner) -> dict:
+    """Run ``harness``'s roll with ``canary`` training on ``pool-0``,
+    paused while that node is cordoned; its steps take the harness's
+    device lock.  Returns the roll's record with the downtime and the
+    lock's share of it."""
+    canary.reset_timing()
+    waits: list[float] = []
+    failure: list[str] = []
+    stop = threading.Event()
+
+    def canary_loop() -> None:
+        while not stop.is_set():
+            # A cordoned node cannot host the job: the step waits, and
+            # that wait is the interruption a job sees.
+            if harness.node_disrupted(0):
+                time.sleep(0.01)
+                continue
+            t0 = time.monotonic()
+            with harness.lock:
+                waited = time.monotonic() - t0
+                try:
+                    canary.run_step()
+                except Exception as e:  # noqa: BLE001 — recorded below
+                    failure.append(f"{type(e).__name__}: {e}")
+                    return
+            waits.append(waited)
+
+    thread = threading.Thread(target=canary_loop, daemon=True)
+    thread.start()
+    try:
+        result = harness.run()
+    finally:
+        stop.set()
+        thread.join(120.0)
+        if thread.is_alive():
+            raise RuntimeError("the canary thread did not stop")
+    end = time.monotonic()
+    still_down = harness.node_disrupted(0)
+    downtime, closing = longest_gap(
+        canary.step_times, canary.window_start,
+        end if (still_down or not result["complete"] or failure) else None,
+    )
+    window = end - canary.window_start
+    result.update(
+        downtime_s=downtime,
+        canary_steps=len(canary.step_times),
+        canary_perf=canary.perf_summary(),
+        canary_error=failure[0] if failure else None,
+        lock={
+            "reason": (
+                "one card stands in for the pool: the canary and the four "
+                "nodes' agents share it and take turns on one lock; on a "
+                "fleet each node has its own GPUs"
+            ),
+            "wait_in_longest_gap_s": waits[closing] if closing >= 0 else 0.0,
+            "wait_total_s": sum(waits),
+            "wait_share": sum(waits) / window if window > 0 else 0.0,
+        },
+    )
+    return result
+
+
+def roll(
+    members: Sequence,
+    canary: CanaryRunner,
+    device_lock: threading.Lock,
+    pipeline: bool,
+    attribution: bool,
+    sizes: tuple[BatterySize, BatterySize] = (IN_FLIGHT, BACKGROUND),
+) -> dict:
+    """A fresh pool, every agent's first report, the attribution check
+    when asked, then the roll with the canary."""
+    harness = RollHarness(members, pipeline, device_lock, sizes)
+    harness.sweep_agents_once()
+    check = harness.attribution_check() if attribution else None
+    if check is not None:
+        log(f"attribution check: ok={check['ok']} ({check['detail']})")
+    log(("pipelined" if pipeline else "sequential") + " roll:")
+    result = roll_with_canary(harness, canary)
+    result["attribution"] = check
+    return result
+
+
+def battery_stage(members: Sequence) -> dict:
+    """The production-size battery over ``members``: unfused cold and
+    warm, then fused cold and warm."""
+    out: dict = {"failures": {}}
+    checks: list = []
+    for fused in (False, True):
+        for attempt in ("cold", "warm"):
+            t0 = time.monotonic()
+            checks = run_host_probe(members, fused=fused)
+            label = f"{'fused' if fused else 'unfused'}_{attempt}"
+            out[label + "_s"] = time.monotonic() - t0
+            out["failures"].update(
+                {f"{label}/{c.name}": c.detail for c in checks if not c.ok}
+            )
+            if not fused:
+                out["metrics"] = {c.name: c.metrics for c in checks
+                                  if c.metrics}
+    # The fused warm run's telemetry: its cache hit and execute time.
+    out["fused_telemetry"] = fused_battery_telemetry(checks)
+    out["fused_stats"] = battery_stats()
+    return out
+
+
+def _num(x, nd: int):
+    return round(float(x), nd) if isinstance(x, (int, float)) else None
+
+
+def main() -> int:
+    preflight = probe_cuda_init(PREFLIGHT_TIMEOUT_S)
+    log(f"preflight: {preflight}")
+    if not preflight["ok"]:
+        emit(METRIC_NAME, 0.0, "s", 0.0, {
+            "complete": False,
+            "error": f"CUDA preflight failed: {preflight['error']}",
+            "preflight_s": round(preflight["seconds"], 3),
+        })
+        return 2
+    import torch
+
+    members = members_of(GPUS_PER_NODE, "cuda")
+    battery = battery_stage(members)
+    log(f"battery: {battery}")
+    canary = CanaryRunner(BENCH_CANARY, device=members[0])
+    for _ in range(3):
+        canary.run_step()  # warm-up
+    lock = threading.Lock()
+    seq = roll(members, canary, lock, pipeline=False, attribution=True)
+    log(f"sequential roll: complete={seq['complete']} wall "
+        f"{seq['wall_s']:.3f} s downtime {seq['downtime_s']:.3f} s")
+    pipe = roll(members, canary, lock, pipeline=True, attribution=False)
+    log(f"pipelined roll: complete={pipe['complete']} wall "
+        f"{pipe['wall_s']:.3f} s downtime {pipe['downtime_s']:.3f} s")
+
+    complete = seq["complete"]
+    attribution = seq["attribution"]
+    card = {"kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}
+    details = {
+        "complete": complete,
+        "preflight": preflight,
+        "device": card,
+        "members": [str(m) for m in members],
+        "battery": battery,
+        "canary": {"config": asdict(BENCH_CANARY),
+                   "params": canary.param_count()},
+        "sequential": seq,
+        "pipelined": pipe,
+        "agent_sizes": {"in_flight": asdict(IN_FLIGHT),
+                        "background": asdict(BACKGROUND),
+                        "max_iters": AGENT_MAX_ITERS},
+        "downtime_budget_s": DOWNTIME_BUDGET_S,
+        "validation_timeout_s": VALIDATION_TIMEOUT_S,
+    }
+    metrics = battery["metrics"]
+    summary = {
+        "complete": complete,
+        "backend": "cuda",
+        "device": card["kind"],
+        "n_devices": card["count"],
+        "downtime_budget_s": DOWNTIME_BUDGET_S,
+        "upgrade_wall_s": _num(seq["wall_s"], 3),
+        "node_windows_s": {k: _num(v, 3)
+                           for k, v in seq["node_windows_s"].items()},
+        "lock_wait_in_longest_gap_s": _num(
+            seq["lock"]["wait_in_longest_gap_s"], 3),
+        "lock_wait_share": _num(seq["lock"]["wait_share"], 4),
+        "attribution_ok": attribution["ok"],
+        "attribution_victim": attribution["victim"],
+        "max_concurrent_unavailable": seq["max_concurrent_unavailable"],
+        "pipelined_complete": pipe["complete"],
+        "pipelined_wall_s": _num(pipe["wall_s"], 3),
+        "pipelined_downtime_s": _num(pipe["downtime_s"], 3),
+        "canary_steps": seq["canary_steps"],
+        "canary_median_step_s": _num(
+            seq["canary_perf"].get("median_step_s"), 4),
+        "mxu_tflops": _num(metrics.get("mxu_matmul", {}).get("tflops"), 1),
+        "hbm_gbps": _num(metrics.get("hbm_bandwidth", {}).get("gbps"), 1),
+        "ici_busbw_gbps": _num(
+            metrics.get("ici_allreduce", {}).get("busbw_gbps"), 1),
+        "fused_warm_cache_hit":
+            battery["fused_telemetry"].get("battery_cache_hit") == 1.0,
+        "battery_failures": len(battery["failures"]),
+        "preflight_s": _num(preflight["seconds"], 3),
+    }
+    if seq["canary_error"]:
+        summary["error"] = f"canary: {seq['canary_error']}"
+    downtime = seq["downtime_s"]
+    emit(
+        METRIC_NAME,
+        round(downtime, 3),
+        "s",
+        round(DOWNTIME_BUDGET_S / max(downtime, 1e-9), 2) if complete
+        else 0.0,
+        summary,
+        full_details=details,
+        details_path=str(DETAILS_PATH),
+    )
+    return 0 if complete and attribution["ok"] else 1
+
+
+if __name__ == "__main__":
+    try:
+        code = main()
+    except Exception as e:  # noqa: BLE001 — the line must still land
+        import traceback
+
+        log(traceback.format_exc())
+        emit(METRIC_NAME, 0.0, "s", 0.0, {
+            "complete": False,
+            "error": f"unhandled {type(e).__name__}: {e}"[:300],
+        })
+        code = 4
+    sys.exit(code)
