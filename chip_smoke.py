@@ -116,17 +116,33 @@ Phases:
    members of the card, the bench-width canary on pool-0, the H100
    floors at the gate): every node ends ``upgrade-done``, one at a time,
    the canary's downtime is under 120 s and the check names pool-1; its
-   wall time, downtime, node windows and lock waits are printed.
+   wall time, downtime, node windows and lock waits are printed;
+13. the port's controller on the card (``bench.controller_roll``): the
+   ``UpgradeController`` on its default keys and selector owns the
+   driver and agent DaemonSets of four GPU Feature Discovery-labelled
+   nodes (``nvidia.com/gpu.product`` NVL, 80GB-HBM3 twice and PCIe,
+   named in the reverse of the profiles' order, no slice), with drain,
+   one upgrade at a time and the generations' floors; the driver
+   spec's version is bumped, and each node's agent (keys and revision
+   from the agent DaemonSet's env) runs the fused battery over 8 members
+   of the card at the bench's in-flight size between the controller's
+   passes.  Every node ends ``upgrade-done``, admitted PCIe, then both
+   SXM, then NVL; the controller's ``MetricsServer`` on a free loopback
+   port, scraped over HTTP, serves ``fleet_nodes`` by generation (1, 2,
+   1) and ``nodes_by_state`` 4 at ``upgrade-done``, and the status
+   CLI's gather shows the same rows.  Its wall time, passes, node
+   windows and launch counts are printed.
 
-Kernel launch counts are zeroed just before each path of phases 4-12
+Kernel launch counts are zeroed just before each path of phases 4-13
 (unfused, fused cold, fused warm, agent, local prober, the collective
 paths, the ring paths, the battery with the deep flag, the canary, the
 sharded and elastic canaries, the unfused agent of the labelled node,
-the network-path checks, the roll) and read just after it: each path
+the network-path checks, the roll, the controller's roll) and read just
+after it: each path
 names the kernels it must launch (K1 and K2 on the battery paths, K1's
 verifying pass as well on the fused ones, K3 on the ring
-paths, K4 and K5 on the all-reduce, sharded, 8-member network and roll
-paths, K4 on the ring shift's: 2 x 8 on the ring probe's), and no path
+paths, K4 and K5 on the all-reduce, sharded, 8-member network and both
+roll paths, K4 on the ring shift's: 2 x 8 on the ring probe's), and no path
 may have fallen back from the fused battery.  K4's launches are also split by
 shape (k, len), from the plans' rounds.  A child process that fails or outlives its time fails
 the run.
@@ -537,9 +553,9 @@ def main() -> int:
         ici_ring_probe,
         resolve_floors,
     )
+    from k8s_operator_libs_tpu_torch.fleet.profiles import GPU_PRODUCT_LABELS
     from k8s_operator_libs_tpu_torch.health.slice_prober import (
         GPU_COUNT_LABELS,
-        GPU_PRODUCT_LABELS,
     )
     from k8s_operator_libs_tpu_torch.health.report import HealthReport
     from k8s_operator_libs_tpu_torch.kernels import build
@@ -2219,10 +2235,57 @@ def main() -> int:
     print(f"[roll] phase 12 took {time.perf_counter() - t12:.2f} s",
           flush=True)
 
+    # -- 13. the port's controller rolls a GFD-labelled pool -------------
+    t13 = time.perf_counter()
+    ctl_fallbacks = fused.battery_stats()["fallbacks"]
+    ctl = on_path(
+        "controller roll, 4 GFD-labelled H100 nodes",
+        lambda: bench_mod.controller_roll(pool_members),
+        fused_kernels + collective_kernels,
+    )
+    products = dict(bench_mod.CONTROLLER_POOL)
+    print(f"[controller] the port's UpgradeController (keys {ctl['keys']}, "
+          f"agents' env {ctl['agent_env']}) rolled "
+          + ", ".join(f"{n} ({products[n]})" for n in ctl["admitted"])
+          + f" in that order: complete={ctl['complete']} in "
+          f"{ctl['wall_s']:.3f} s, {ctl['passes']} passes; node windows "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in
+                      sorted(ctl["node_windows_s"].items()) if v is not None)
+          + f"; {ctl['batteries']} agent batteries over "
+          f"{len(pool_members)} members, {ctl['battery_s']:.3f} s; on {card}",
+          flush=True)
+    print(f"[controller] scraped fleet_nodes {ctl['fleet_nodes']}, "
+          f"nodes_by_state upgrade-done "
+          f"{ctl['nodes_by_state'].get('upgrade-done')}; status generations "
+          f"{ctl['status_generations']}", flush=True)
+    require(ctl["complete"] and ctl["final_states"] == {
+        name: "upgrade-done" for name in products
+    }, f"controller roll: states {ctl['final_states']}")
+    # PCIe, then both SXM, then NVL (the profiles' order, then the name).
+    require(ctl["admitted"] == ["pool-3", "pool-1", "pool-2", "pool-0"],
+            f"controller roll admitted {ctl['admitted']}")
+    generations = {"h100-pcie": 1, "h100-sxm": 2, "h100-nvl": 1}
+    require(ctl["fleet_nodes"] == {g: float(n) for g, n in
+                                   generations.items()},
+            f"fleet_nodes over HTTP: {ctl['fleet_nodes']}")
+    require(ctl["nodes_by_state"].get("upgrade-done") == 4.0,
+            f"nodes_by_state over HTTP: {ctl['nodes_by_state']}")
+    require({g: row["nodes"] for g, row in
+             (ctl["status_generations"] or {}).items()} == generations,
+            f"status generations: {ctl['status_generations']}")
+    require(ctl["keys"] == "nvidia.com/gpu-driver-upgrade-state"
+            and ctl["agent_env"] == {"DRIVER_NAME": "gpu",
+                                     "DRIVER_REVISION": ctl["revisions"][1]},
+            f"controller and agents' keys: {ctl['keys']} {ctl['agent_env']}")
+    require(fused.battery_stats()["fallbacks"] == ctl_fallbacks,
+            f"fused fallbacks on the controller roll: {fused.battery_stats()}")
+    print(f"[controller] phase 13 took {time.perf_counter() - t13:.2f} s",
+          flush=True)
+
     print("[launches] main path total: "
           + ", ".join(f"{k} {n}" for k, n in launches.items()), flush=True)
 
-    # -- 13. kernel line, card, result --------------------------------------
+    # -- 14. kernel line, card, result --------------------------------------
     source = {
         "stream_increment_":
             "k8s_operator_libs_tpu_torch/kernels/csrc/battery_kernels.cu",

@@ -48,13 +48,21 @@ the downtime (on a fleet each node has its own GPUs and nothing waits).
 
 Output: one JSON line of at most 2 KB on stdout (:mod:`.bench_io`), the
 full record in ``build/bench_torch/details.json``, progress on stderr.
+
+:func:`controller_roll` is the operator's own loop on a mixed pool (the
+port's ``UpgradeController`` owning both DaemonSets, its metrics served
+over HTTP, the status CLI's gather); ``chip_smoke.py`` and the tests
+drive it, the bench's line does not carry it yet.
 """
 
 from __future__ import annotations
 
+import os
+import re
 import sys
 import threading
 import time
+import urllib.request
 from dataclasses import asdict, dataclass
 from pathlib import Path
 from typing import Optional, Sequence
@@ -65,16 +73,31 @@ from k8s_operator_libs_tpu_torch.api import (
     TPUUpgradePolicySpec,
 )
 from k8s_operator_libs_tpu_torch.bench_io import emit
+from k8s_operator_libs_tpu_torch.controller import (
+    ControllerConfig,
+    UpgradeController,
+)
+from k8s_operator_libs_tpu_torch.driver import (
+    AgentDaemonSetSpec,
+    DriverDaemonSetSpec,
+)
+from k8s_operator_libs_tpu_torch.driver.daemonset import (
+    TEMPLATE_HASH_ANNOTATION,
+)
 from k8s_operator_libs_tpu_torch.entry import members_of
 from k8s_operator_libs_tpu_torch.health import NodeReportProber, run_host_probe
 from k8s_operator_libs_tpu_torch.health.agent import HealthAgent
 from k8s_operator_libs_tpu_torch.health.fused import battery_stats
 from k8s_operator_libs_tpu_torch.health.report import fused_battery_telemetry
-from k8s_operator_libs_tpu_torch.health.slice_prober import (
-    GPU_COUNT_LABELS,
-    GPU_PRODUCT_LABELS,
-)
+from k8s_operator_libs_tpu_torch.fleet.profiles import GPU_PRODUCT_LABELS
+from k8s_operator_libs_tpu_torch.health.slice_prober import GPU_COUNT_LABELS
 from k8s_operator_libs_tpu_torch.hostenv import probe_cuda_init
+from k8s_operator_libs_tpu_torch.keys import (
+    DRIVER_LABELS,
+    DRIVER_NAME_ENV,
+    driver_keys,
+    keys_from_env,
+)
 from k8s_operator_libs_tpu_torch.k8s import (
     ContainerStatus,
     DaemonSet,
@@ -94,10 +117,9 @@ from k8s_operator_libs_tpu_torch.k8s.objects import (
     PodStatus,
     PodTemplateSpec,
 )
-from k8s_operator_libs_tpu_torch.upgrade import (
-    ClusterUpgradeStateManager,
-    UpgradeKeys,
-)
+from k8s_operator_libs_tpu_torch.metrics import MetricsServer
+from k8s_operator_libs_tpu_torch.status import gather
+from k8s_operator_libs_tpu_torch.upgrade import ClusterUpgradeStateManager
 from k8s_operator_libs_tpu_torch.workloads.canary import (
     CanaryConfig,
     CanaryRunner,
@@ -121,8 +143,7 @@ DETAILS_PATH = (
     / "details.json"
 )
 # The NVIDIA GPU operator's keys ("nvidia.com/gpu-driver-upgrade-state").
-KEYS = UpgradeKeys(driver_name="gpu", domain="nvidia.com")
-DRIVER_LABELS = {"app": "nvidia-driver-daemonset"}
+KEYS = driver_keys()
 NAMESPACE = "gpu-operator"
 # The JAX bench's canary (bench.py:1177-1180): 102,777,856 parameters.
 BENCH_CANARY = CanaryConfig(
@@ -190,10 +211,10 @@ class _Fleet:
         """Record a new template revision (the roll's trigger)."""
         self.client.add_daemon_set_revision(ds, hash_suffix, revision)
 
-    def gpu_node(self, name: str) -> Node:
+    def gpu_node(self, name: str, product: str = GPU_PRODUCT) -> Node:
         """An HGX H100 node as GPU Feature Discovery labels it."""
         node = Node(metadata=ObjectMeta(name=name, labels={
-            GPU_PRODUCT_LABELS[0]: GPU_PRODUCT,
+            GPU_PRODUCT_LABELS[0]: product,
             GPU_COUNT_LABELS[0]: str(GPUS_PER_NODE),
         }))
         self.client.create_node(node)
@@ -552,6 +573,181 @@ def roll(
     result = roll_with_canary(harness, canary)
     result["attribution"] = check
     return result
+
+
+# The controller roll's pool: each node's GPU Feature Discovery product,
+# the names in the reverse of the profiles' order (PCIe, SXM, NVL) so
+# that admission by generation and admission by name differ.
+CONTROLLER_POOL = (
+    ("pool-0", "NVIDIA-H100-NVL"),
+    ("pool-1", "NVIDIA-H100-80GB-HBM3"),
+    ("pool-2", "NVIDIA-H100-80GB-HBM3"),
+    ("pool-3", "NVIDIA-H100-PCIe"),
+)
+CONTROLLER_MAX_PASSES = 80
+_METRIC_LINE = re.compile(
+    r'^tpu_operator_(fleet_nodes|nodes_by_state)\{(?:generation|state)="'
+    r'([^"]*)"\} (\S+)$'
+)
+
+
+def _agent_env(cluster: FakeCluster, spec: AgentDaemonSetSpec) -> dict:
+    """The env of the live agent DaemonSet's container."""
+    ds = cluster.get_daemon_set(spec.namespace, spec.name)
+    container = ds.spec.template.pod_spec["containers"][0]
+    return {e["name"]: e.get("value") for e in container["env"]}
+
+
+def _run_agent(cluster: FakeCluster, node: str, members: Sequence,
+               size: BatterySize, env: dict) -> HealthAgent:
+    """One report from ``node``'s agent, as its pod of the agent
+    DaemonSet runs it: keys and revision from the DaemonSet's env."""
+    agent = HealthAgent(
+        cluster, node, keys_from_env(env), driver_revision=env["DRIVER_REVISION"],
+        devices=list(members), matmul_n=size.matmul_n,
+        hbm_mib=size.hbm_mib, allreduce_elems=size.allreduce_elems,
+        max_iters=AGENT_MAX_ITERS,
+    )
+    agent.run_once()
+    return agent
+
+
+def controller_roll(members: Sequence, size: BatterySize = IN_FLIGHT) -> dict:
+    """The port's ``UpgradeController``, on its default keys and
+    selector, rolls :data:`CONTROLLER_POOL` on a ``FakeCluster``.
+
+    The controller owns both DaemonSets (driver and agent,
+    ``generation_floors`` on, one upgrade at a time, drain on).  This
+    function stands in for the DaemonSet controller (a ControllerRevision
+    per driver template, the driver pods) and for the agents: each node's
+    ``HealthAgent`` over ``members`` at ``size`` reports once before the
+    roll, then whenever its node waits at ``validation-required``, with
+    its keys and revision from the live agent DaemonSet's env.  The roll
+    bumps the driver spec's version.  After it, the controller's
+    ``MetricsServer`` (a free loopback port) is scraped over HTTP and the
+    status CLI's ``gather`` read."""
+    cluster = FakeCluster()
+    fleet = _Fleet(cluster)
+    nodes = [fleet.gpu_node(name, product)
+             for name, product in CONTROLLER_POOL]
+    driver = DriverDaemonSetSpec(namespace=NAMESPACE, version="1")
+    agent = AgentDaemonSetSpec(namespace=NAMESPACE)
+    controller = UpgradeController(cluster, ControllerConfig(
+        namespace=NAMESPACE,
+        interval_s=0.0,
+        policy=TPUUpgradePolicySpec(
+            auto_upgrade=True,
+            max_parallel_upgrades=1,
+            drain_spec=DrainSpec(enable=True, timeout_second=30),
+            health_gate=SliceHealthGateSpec(
+                enable=True, timeout_second=VALIDATION_TIMEOUT_S
+            ),
+        ),
+        daemonset_spec=driver,
+        agent_spec=agent,
+        generation_floors=True,
+    ))
+    controller.manager.provider.poll_interval_s = 0.01
+    controller.manager.provider.poll_timeout_s = 5.0
+    keys = controller.keys
+
+    def record_revision(revision: int) -> str:
+        """The DaemonSet controller: a ControllerRevision of the driver
+        DaemonSet's current template, named by its hash."""
+        ds = cluster.get_daemon_set(NAMESPACE, driver.name)
+        rev = ds.metadata.annotations[TEMPLATE_HASH_ANNOTATION][:10]
+        fleet.bump_daemon_set_template(ds, rev, revision)
+        return rev
+
+    def node_states() -> dict[str, str]:
+        return {n.name: cluster.get_node(n.name, cached=False).labels.get(
+            keys.state_label, "") for n in nodes}
+
+    batteries: list[float] = []
+
+    def report(node: str) -> None:
+        t0 = time.monotonic()
+        _run_agent(cluster, node, members, size, _agent_env(cluster, agent))
+        batteries.append(time.monotonic() - t0)
+
+    controller.reconcile_once()          # creates both DaemonSets
+    rev1 = record_revision(1)
+    ds = cluster.get_daemon_set(NAMESPACE, driver.name)
+    for node in nodes:
+        fleet.driver_pod(node, ds, rev1)
+    controller.reconcile_once()          # pins the agents to rev1
+    for node in nodes:
+        report(node.name)
+    driver.version = "2"
+    controller.reconcile_once()          # updates the driver's template
+    rev2 = record_revision(2)
+    fleet.auto_recreate_driver_pods(
+        cluster.get_daemon_set(NAMESPACE, driver.name), rev2
+    )
+    t0 = time.monotonic()
+    passes = 0
+    admitted: list[str] = []
+    transitions: list[tuple[float, str, str]] = []
+    last: dict[str, str] = {}
+
+    def complete() -> bool:
+        """Every node went through the roll and is done."""
+        return (len(admitted) == len(nodes)
+                and set(states.values()) == {"upgrade-done"})
+
+    states = node_states()
+    while passes < CONTROLLER_MAX_PASSES and not complete():
+        passes += 1
+        controller.reconcile_once()
+        controller.manager.wait_for_async_work(60.0)
+        states = node_states()
+        for name, state in states.items():
+            if last.get(name) != state:
+                transitions.append((time.monotonic() - t0, name, state))
+                last[name] = state
+            if state in ACTIVE_STATES and name not in admitted:
+                admitted.append(name)
+        for name, state in states.items():
+            if state == "validation-required":
+                report(name)
+    wall_s = time.monotonic() - t0
+    controller.reconcile_once()          # the metrics see the final states
+    server = MetricsServer(controller.registry, port=0)
+    server.start()
+    try:
+        with urllib.request.urlopen(
+            f"http://127.0.0.1:{server.port}/metrics", timeout=10
+        ) as resp:
+            text = resp.read().decode()
+    finally:
+        server.stop()
+    scraped: dict[str, dict[str, float]] = {
+        "fleet_nodes": {}, "nodes_by_state": {}
+    }
+    for line in text.splitlines():
+        m = _METRIC_LINE.match(line)
+        if m:
+            scraped[m.group(1)][m.group(2)] = float(m.group(3))
+    status = gather(cluster, NAMESPACE, controller.config.driver_labels,
+                    keys=keys)
+    return {
+        "complete": complete(),
+        "final_states": states,
+        "passes": passes,
+        "wall_s": wall_s,
+        "admitted": admitted,
+        "transitions": transitions,
+        "node_windows_s": node_windows(transitions),
+        "revisions": [rev1, rev2],
+        "agent_env": {k: v for k, v in _agent_env(cluster, agent).items()
+                      if k in (DRIVER_NAME_ENV, "DRIVER_REVISION")},
+        "batteries": len(batteries),
+        "battery_s": sum(batteries),
+        "fleet_nodes": scraped["fleet_nodes"],
+        "nodes_by_state": scraped["nodes_by_state"],
+        "status_generations": status.get("fleet", {}).get("generations"),
+        "keys": keys.state_label,
+    }
 
 
 def battery_stage(members: Sequence) -> dict:

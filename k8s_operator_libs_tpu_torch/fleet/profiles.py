@@ -8,15 +8,33 @@ board power used as a relative scheduling weight.
 
 Resolution accepts anything ``hw.chip_spec`` accepts; unknown kinds
 resolve to None and callers skip generation-relative behavior.
+
+:func:`node_accelerator` and :func:`group_accelerator` are the one place
+that reads a node's or an upgrade group's accelerator string: the
+engine's ordering, preemption counts, planner, telemetry and metrics and
+the validation gate all resolve it here, so they cannot disagree.  The
+engine builds ``slice_info`` only from TPU labels, so a GPU node (which
+GPU Feature Discovery labels with its product) reaches them as a group
+without a slice.
 """
 
 from __future__ import annotations
 
 import threading
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Sequence
 
 from k8s_operator_libs_tpu_torch.hw import ChipSpec, chip_spec
+from k8s_operator_libs_tpu_torch.topology.slices import (
+    GKE_TPU_ACCELERATOR_LABEL,
+)
+
+# Node labels naming a GPU host's accelerator, GPU Feature Discovery's
+# first, then GKE's.
+GPU_PRODUCT_LABELS = (
+    "nvidia.com/gpu.product",
+    "cloud.google.com/gke-accelerator",
+)
 
 # Default floor fractions of the published peak (same values as the TPU
 # profiles): sustained readings below half of spec on hardware that
@@ -124,3 +142,24 @@ def generation_of(device_kind: str) -> str:
     """Canonical generation name ("h100-sxm"), or "" when unknown."""
     profile = generation_profile(device_kind)
     return profile.name if profile is not None else ""
+
+
+def _node_label(node, names: Sequence[str]) -> str:
+    """The first of ``names`` set on the node, or ""."""
+    labels = getattr(node, "labels", None) or {}
+    return next((labels[n] for n in names if labels.get(n)), "")
+
+
+def node_accelerator(node) -> str:
+    """The accelerator a node's labels name: GKE's TPU accelerator label,
+    else the GPU product (:data:`GPU_PRODUCT_LABELS`, in order), or ""."""
+    return _node_label(node, (GKE_TPU_ACCELERATOR_LABEL,) + GPU_PRODUCT_LABELS)
+
+
+def group_accelerator(group) -> str:
+    """An upgrade group's accelerator: its slice's, else its first
+    node's (:func:`node_accelerator`), or ""."""
+    if group.slice_info is not None:
+        return group.slice_info.accelerator or ""
+    nodes = getattr(group, "nodes", None) or []
+    return node_accelerator(nodes[0]) if nodes else ""

@@ -27,7 +27,10 @@ from __future__ import annotations
 
 from typing import Callable, Iterable, Optional
 
-from k8s_operator_libs_tpu_torch.fleet.profiles import generation_profile
+from k8s_operator_libs_tpu_torch.fleet.profiles import (
+    generation_profile,
+    group_accelerator,
+)
 
 # Unknown generations (CPU meshes, unmapped accelerators) sort AFTER
 # every known one: an unknown canary proves nothing.
@@ -46,10 +49,7 @@ def generation_order_key(device_kind: str) -> tuple[int, float, str]:
 def group_sort_key(group) -> tuple:
     """Sort key for an UpgradeGroup: generation key, then group id for a
     total deterministic order within a generation."""
-    accelerator = ""
-    if group.slice_info is not None:
-        accelerator = group.slice_info.accelerator or ""
-    return generation_order_key(accelerator) + (group.id,)
+    return generation_order_key(group_accelerator(group)) + (group.id,)
 
 
 def order_groups(groups: Iterable) -> list:
@@ -67,10 +67,9 @@ def packed_group_sort_key(group, cost: int) -> tuple:
     Within a generation, larger groups go first so smaller ones fill
     the residual budget instead of stranding it; id breaks ties for a
     total deterministic order."""
-    accelerator = ""
-    if group.slice_info is not None:
-        accelerator = group.slice_info.accelerator or ""
-    return generation_order_key(accelerator) + (-cost, group.id)
+    return generation_order_key(group_accelerator(group)) + (
+        -cost, group.id,
+    )
 
 
 def pool_sort_key(

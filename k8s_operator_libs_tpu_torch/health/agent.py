@@ -28,6 +28,7 @@ import torch
 from k8s_operator_libs_tpu_torch.consts import get_logger
 from k8s_operator_libs_tpu_torch.health.probes import run_host_probe
 from k8s_operator_libs_tpu_torch.health.report import HealthReport
+from k8s_operator_libs_tpu_torch.keys import driver_keys, keys_from_env
 from k8s_operator_libs_tpu_torch.upgrade.util import UpgradeKeys
 
 logger = get_logger(__name__)
@@ -102,7 +103,7 @@ class HealthAgent:
     ) -> None:
         self.client = client
         self.node_name = node_name
-        self.keys = keys or UpgradeKeys()
+        self.keys = keys or driver_keys()
         self.driver_revision = driver_revision
         self.devices = list(devices) if devices is not None else None
         self.slice_wide = slice_wide
@@ -243,6 +244,9 @@ def main() -> None:
     agent = HealthAgent(
         client=InClusterNodeAnnotator(),
         node_name=node_name,
+        # DRIVER_NAME, set by the agent DaemonSet, names the controller's
+        # driver: the report lands under the keys the controller reads.
+        keys=keys_from_env(),
         driver_revision=os.environ.get(DRIVER_REVISION_ENV, ""),
         deep=os.environ.get("HEALTH_DEEP_PROBE", "") == "1",
         dcn_peers=csv_env("HEALTH_DCN_PEERS"),

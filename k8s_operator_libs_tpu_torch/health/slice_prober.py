@@ -18,7 +18,8 @@ Groups are duck-typed: ``.id``, ``.nodes`` (each with ``.name``,
 The engine builds ``slice_info`` only from TPU labels, so every GPU node
 reaches the gate as a singleton group without one.  For such a group the
 accelerator and the device count come from each node's own labels
-(:data:`GPU_PRODUCT_LABELS`, :data:`GPU_COUNT_LABELS`), and the count
+(``fleet.profiles.node_accelerator``, the engine's own reader, and
+:data:`GPU_COUNT_LABELS`), and the count
 check and the generation's floors apply per node; a node without them
 is unknown and nothing is enforced, as for an unknown accelerator.
 """
@@ -31,7 +32,11 @@ from typing import Optional, Sequence
 import torch
 
 from k8s_operator_libs_tpu_torch.consts import get_logger
-from k8s_operator_libs_tpu_torch.fleet.profiles import generation_profile
+from k8s_operator_libs_tpu_torch.fleet.profiles import (
+    _node_label,
+    generation_profile,
+    node_accelerator,
+)
 from k8s_operator_libs_tpu_torch.health.probes import run_host_probe
 from k8s_operator_libs_tpu_torch.health.report import (
     HealthReport,
@@ -46,22 +51,12 @@ logger = get_logger(__name__)
 # recently than the probe ran, or the agent is wedged.
 DEFAULT_MAX_REPORT_AGE_S = 600.0
 
-# Node labels naming a GPU host's accelerator and its device count, GPU
-# Feature Discovery's first, then GKE's.
-GPU_PRODUCT_LABELS = (
-    "nvidia.com/gpu.product",
-    "cloud.google.com/gke-accelerator",
-)
+# Node labels naming a GPU host's device count, GPU Feature Discovery's
+# first, then GKE's (the accelerator's are ``fleet.profiles``').
 GPU_COUNT_LABELS = (
     "nvidia.com/gpu.count",
     "cloud.google.com/gke-accelerator-count",
 )
-
-
-def _node_label(node, names: Sequence[str]) -> str:
-    """The first of ``names`` set on the node, or ""."""
-    labels = getattr(node, "labels", None) or {}
-    return next((labels[n] for n in names if labels.get(n)), "")
 
 
 class LocalDeviceProber:
@@ -164,10 +159,10 @@ class NodeReportProber:
 
     def _group_profile(self, group, node=None):
         """The GenerationProfile of the group's slice, else of ``node``'s
-        GPU product label, or None."""
+        accelerator label, or None."""
         if group.slice_info is not None:
             return generation_profile(group.slice_info.accelerator)
-        return generation_profile(_node_label(node, GPU_PRODUCT_LABELS))
+        return generation_profile(node_accelerator(node))
 
     def _hbm_floor(self, group, node=None) -> float:
         """Effective HBM floor: explicit wins; else the policy fraction

@@ -38,6 +38,7 @@ import time
 from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 from k8s_operator_libs_tpu_torch.consts import get_logger
+from k8s_operator_libs_tpu_torch.fleet.profiles import node_accelerator
 from k8s_operator_libs_tpu_torch.obs.baseline import (
     DEFAULT_MIN_COHORT,
     BaselineStat,
@@ -191,8 +192,7 @@ class TelemetryPlane:
             return
         generations = {}
         for node in getattr(group, "nodes", []) or []:
-            labels = getattr(node, "labels", None) or {}
-            gen = labels.get(_accelerator_label(), "")
+            gen = node_accelerator(node)
             if gen:
                 generations[node.name] = gen
         now = self.epoch_clock()
@@ -498,11 +498,3 @@ class TelemetryPlane:
                     if v > 0
                 },
             }
-
-
-def _accelerator_label() -> str:
-    from k8s_operator_libs_tpu_torch.upgrade.consts import (
-        GKE_TPU_ACCELERATOR_LABEL,
-    )
-
-    return GKE_TPU_ACCELERATOR_LABEL

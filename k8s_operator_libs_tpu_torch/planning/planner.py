@@ -31,6 +31,7 @@ from typing import Optional
 
 from k8s_operator_libs_tpu_torch.artifacts.dag import artifact_dag_of
 from k8s_operator_libs_tpu_torch.consts import get_logger
+from k8s_operator_libs_tpu_torch.fleet.profiles import group_accelerator
 from k8s_operator_libs_tpu_torch.fleet.scheduler import (
     group_sort_key,
     packed_group_sort_key,
@@ -731,11 +732,7 @@ def plan_roll(
         wave_groups = []
         wave_pools = []
         for group, pool_name, cost, _el, dur, was_in_flight in admitted:
-            accelerator = (
-                group.slice_info.accelerator
-                if group.slice_info is not None
-                else ""
-            )
+            accelerator = group_accelerator(group)
             plan.groups.append(
                 PlannedGroup(
                     group_id=group.id,

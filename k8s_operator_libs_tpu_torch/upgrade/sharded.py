@@ -46,6 +46,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 from k8s_operator_libs_tpu_torch.consts import get_logger
+from k8s_operator_libs_tpu_torch.fleet.profiles import group_accelerator
 from k8s_operator_libs_tpu_torch.fleet.scheduler import pool_sort_key
 from k8s_operator_libs_tpu_torch.k8s.client import WatchEvent
 from k8s_operator_libs_tpu_torch.topology.slices import slice_info_for_node
@@ -929,11 +930,7 @@ class ShardedReconciler:
         pool_for_group = getattr(self.manager, "_pool_for_group", None)
         has_policy_pools = bool(getattr(policy, "pools", None))
         for group in state.all_groups():
-            accel = (
-                group.slice_info.accelerator
-                if group.slice_info is not None
-                else ""
-            )
+            accel = group_accelerator(group)
             if has_policy_pools and pool_for_group is not None:
                 name = pool_for_group(group, policy)
                 if name is not None:

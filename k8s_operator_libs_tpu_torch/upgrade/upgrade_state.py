@@ -32,7 +32,7 @@ from k8s_operator_libs_tpu_torch.api.v1alpha1 import (
 )
 from k8s_operator_libs_tpu_torch.artifacts.dag import artifact_dag_of
 from k8s_operator_libs_tpu_torch.consts import get_logger
-from k8s_operator_libs_tpu_torch.fleet.profiles import generation_of
+from k8s_operator_libs_tpu_torch.fleet.profiles import generation_of, group_accelerator
 from k8s_operator_libs_tpu_torch.fleet.scheduler import (
     group_sort_key,
     packed_group_sort_key,
@@ -2468,10 +2468,9 @@ class ClusterUpgradeStateManager:
             if self._group_preempted(group):
                 if not stamped:
                     gen = (
-                        generation_of(group.slice_info.accelerator)
-                        if group.slice_info is not None
-                        else ""
-                    ) or "unknown"
+                        generation_of(group_accelerator(group))
+                        or "unknown"
+                    )
                     self.preemptions[gen] = self.preemptions.get(gen, 0) + 1
                     with self.provider.batched():
                         self.provider.change_nodes_upgrade_annotation(

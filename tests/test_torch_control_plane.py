@@ -40,24 +40,300 @@ COPIED = (
     "consts.py",
     "api/__init__.py", "api/schema.py", "api/v1alpha1.py",
     "artifacts/__init__.py", "artifacts/dag.py",
-    "fleet/__init__.py", "fleet/scheduler.py", "fleet/windows.py",
+    "driver/__init__.py",
+    "fleet/__init__.py", "fleet/windows.py",
     "k8s/__init__.py", "k8s/apiserver.py", "k8s/client.py", "k8s/drain.py",
     "k8s/faults.py", "k8s/informer.py", "k8s/interface.py", "k8s/leader.py",
     "k8s/objects.py", "k8s/rest.py", "k8s/retry.py", "k8s/selectors.py",
     "k8s/writeplan.py",
     "topology/__init__.py", "topology/slices.py",
     "obs/__init__.py", "obs/baseline.py", "obs/critical.py",
-    "obs/flightrec.py", "obs/telemetry.py", "obs/trace.py",
+    "obs/flightrec.py", "obs/trace.py",
     "planning/__init__.py", "planning/clocks.py", "planning/drift.py",
-    "planning/planner.py", "planning/twin.py",
+    "planning/twin.py",
     "upgrade/__init__.py", "upgrade/consts.py", "upgrade/types.py",
     "upgrade/util.py", "upgrade/node_state_provider.py",
     "upgrade/cordon_manager.py", "upgrade/drain_manager.py",
     "upgrade/pod_manager.py", "upgrade/validation_manager.py",
     "upgrade/safe_driver_load_manager.py", "upgrade/stuck.py",
-    "upgrade/durable.py", "upgrade/matview.py", "upgrade/sharded.py",
-    "upgrade/upgrade_state.py",
+    "upgrade/durable.py", "upgrade/matview.py",
 )
+
+_P = "k8s_operator_libs_tpu_torch"
+
+# What the port's manifests.py adds after the reference's code: its
+# command line, which is the port's own module.
+_MANIFESTS_MAIN = f'''
+
+if __name__ == "__main__":
+    from {_P}.manifests_cli import main
+
+    raise SystemExit(main())
+'''
+
+# The port's own copies: each is the reference's module with the prefix
+# rewritten and these (reference snippet, port snippet) substitutions
+# made, nothing else.  The engine's modules read a group's or a node's
+# accelerator through ``fleet.profiles`` (``group_accelerator``,
+# ``node_accelerator``), where a GPU node without a slice has its GPU
+# Feature Discovery label; the reference reads the slice's alone.
+OWN_COPIES: dict[str, list[tuple[str, str]]] = {
+    "fleet/scheduler.py": [
+        (
+            f"from {_P}.fleet.profiles import generation_profile\n",
+            f"from {_P}.fleet.profiles import (\n"
+            "    generation_profile,\n"
+            "    group_accelerator,\n"
+            ")\n",
+        ),
+        (
+            '    accelerator = ""\n'
+            "    if group.slice_info is not None:\n"
+            '        accelerator = group.slice_info.accelerator or ""\n'
+            "    return generation_order_key(accelerator) + (group.id,)\n",
+            "    return generation_order_key(group_accelerator(group)) + (group.id,)\n",
+        ),
+        (
+            '    accelerator = ""\n'
+            "    if group.slice_info is not None:\n"
+            '        accelerator = group.slice_info.accelerator or ""\n'
+            "    return generation_order_key(accelerator) + (-cost, group.id)\n",
+            "    return generation_order_key(group_accelerator(group)) + (\n"
+            "        -cost, group.id,\n"
+            "    )\n",
+        ),
+    ],
+    "upgrade/upgrade_state.py": [
+        (
+            f"from {_P}.fleet.profiles import generation_of\n",
+            f"from {_P}.fleet.profiles import generation_of, group_accelerator\n",
+        ),
+        (
+            "                    gen = (\n"
+            "                        generation_of(group.slice_info.accelerator)\n"
+            "                        if group.slice_info is not None\n"
+            '                        else ""\n'
+            '                    ) or "unknown"\n',
+            "                    gen = (\n"
+            "                        generation_of(group_accelerator(group))\n"
+            '                        or "unknown"\n'
+            "                    )\n",
+        ),
+    ],
+    "upgrade/sharded.py": [
+        (
+            f"from {_P}.fleet.scheduler import pool_sort_key\n",
+            f"from {_P}.fleet.profiles import group_accelerator\n"
+            f"from {_P}.fleet.scheduler import pool_sort_key\n",
+        ),
+        (
+            "            accel = (\n"
+            "                group.slice_info.accelerator\n"
+            "                if group.slice_info is not None\n"
+            '                else ""\n'
+            "            )\n",
+            "            accel = group_accelerator(group)\n",
+        ),
+    ],
+    "planning/planner.py": [
+        (
+            f"from {_P}.fleet.scheduler import (\n",
+            f"from {_P}.fleet.profiles import group_accelerator\n"
+            f"from {_P}.fleet.scheduler import (\n",
+        ),
+        (
+            "            accelerator = (\n"
+            "                group.slice_info.accelerator\n"
+            "                if group.slice_info is not None\n"
+            '                else ""\n'
+            "            )\n",
+            "            accelerator = group_accelerator(group)\n",
+        ),
+    ],
+    # The operator's own loop.  The driver's keys and names are the NVIDIA
+    # GPU operator's (``keys.py``), where the reference's are libtpu's.
+    "driver/safe_load_init.py": [
+        (
+            f"from {_P}.upgrade.util import UpgradeKeys\n",
+            f"from {_P}.keys import driver_keys, keys_from_env\n"
+            f"from {_P}.upgrade.util import UpgradeKeys\n",
+        ),
+        ("    keys = keys or UpgradeKeys()\n", "    keys = keys or driver_keys()\n"),
+        (
+            "    keys = UpgradeKeys(\n"
+            '        driver_name=os.environ.get("DRIVER_NAME", "libtpu")\n'
+            "    )\n",
+            "    keys = keys_from_env()\n",
+        ),
+    ],
+    "metrics.py": [
+        (
+            f"            from {_P}.fleet.profiles import generation_of\n",
+            f"            from {_P}.fleet.profiles import (\n"
+            "                generation_of,\n"
+            "                group_accelerator,\n"
+            "            )\n",
+        ),
+        (
+            "                    accel = getattr(\n"
+            '                        getattr(group, "slice_info", None), '
+            '"accelerator", ""\n'
+            "                    )\n"
+            '                    gen = generation_of(accel or "") or "unknown"\n',
+            "                    gen = (\n"
+            "                        generation_of(group_accelerator(group))\n"
+            '                        or "unknown"\n'
+            "                    )\n",
+        ),
+    ],
+    "controller.py": [
+        (
+            f"from {_P}.k8s.retry import CircuitOpenError\n",
+            f"from {_P}.k8s.retry import CircuitOpenError\n"
+            f"from {_P}.keys import (\n"
+            "    CONTROLLER_NAME,\n"
+            "    DEFAULT_DRIVER_NAME,\n"
+            "    DRIVER_DAEMONSET_NAME,\n"
+            "    DRIVER_LABELS,\n"
+            "    driver_keys,\n"
+            ")\n",
+        ),
+        (
+            "    EventRecorder,\n    UpgradeKeys,\n    log_event,\n",
+            "    EventRecorder,\n    log_event,\n",
+        ),
+        (
+            '        default_factory=lambda: {"app": "libtpu-driver"}\n'
+            "    )\n"
+            '    driver_name: str = "libtpu"\n',
+            "        default_factory=lambda: dict(DRIVER_LABELS)\n"
+            "    )\n"
+            "    driver_name: str = DEFAULT_DRIVER_NAME\n",
+        ),
+        (
+            '    lease_name: str = "tpu-upgrade-controller"\n',
+            "    lease_name: str = CONTROLLER_NAME\n",
+        ),
+        (
+            "        self.keys = UpgradeKeys(driver_name=config.driver_name)\n",
+            "        self.keys = driver_keys(config.driver_name)\n",
+        ),
+        (
+            '        default="app=libtpu-driver",\n',
+            '        default=f"app={DRIVER_DAEMONSET_NAME}",\n',
+        ),
+        (
+            '    parser.add_argument("--driver-name", default="libtpu")\n',
+            '    parser.add_argument("--driver-name", default=DEFAULT_DRIVER_NAME)\n',
+        ),
+        (
+            '        help="also reconcile the libtpu device-plugin DaemonSet",\n',
+            '        help="also reconcile the NVIDIA driver DaemonSet",\n',
+        ),
+        (
+            '        default="tpu-upgrade-controller",\n'
+            '        help="Lease object name for --leader-elect",\n',
+            "        default=CONTROLLER_NAME,\n"
+            '        help="Lease object name for --leader-elect",\n',
+        ),
+    ],
+    "status.py": [
+        (
+            f"from {_P}.upgrade.util import UpgradeKeys\n",
+            f"from {_P}.fleet.profiles import group_accelerator\n"
+            f"from {_P}.keys import (\n"
+            "    CONTROLLER_NAME,\n"
+            "    DEFAULT_DRIVER_NAME,\n"
+            "    DRIVER_DAEMONSET_NAME,\n"
+            "    driver_keys,\n"
+            ")\n"
+            f"from {_P}.upgrade.util import UpgradeKeys\n",
+        ),
+        (
+            '    lease_name: str = "tpu-upgrade-controller",\n',
+            "    lease_name: str = CONTROLLER_NAME,\n",
+        ),
+        (
+            "    keys = keys or UpgradeKeys()\n",
+            "    keys = keys or driver_keys()\n",
+        ),
+        (
+            '                "accelerator": (\n'
+            '                    group.slice_info.accelerator if group.slice_info else ""\n'
+            "                ),\n",
+            '                "accelerator": group_accelerator(group),\n',
+        ),
+        (
+            '        accel = group.slice_info.accelerator if group.slice_info else ""\n'
+            '        gen = generation_of(accel) or "unknown"\n',
+            '        gen = generation_of(group_accelerator(group)) or "unknown"\n',
+        ),
+        (
+            '    parser.add_argument("--selector", default="app=libtpu-driver")\n'
+            '    parser.add_argument("--driver-name", default="libtpu")\n',
+            "    parser.add_argument(\n"
+            '        "--selector", default=f"app={DRIVER_DAEMONSET_NAME}"\n'
+            "    )\n"
+            '    parser.add_argument("--driver-name", default=DEFAULT_DRIVER_NAME)\n',
+        ),
+        (
+            '    parser.add_argument("--lease-name", default="tpu-upgrade-controller")\n',
+            '    parser.add_argument("--lease-name", default=CONTROLLER_NAME)\n',
+        ),
+        (
+            "        keys=UpgradeKeys(driver_name=args.driver_name),\n",
+            "        keys=driver_keys(args.driver_name),\n",
+        ),
+    ],
+    # The port renders and checks its own manifests (the reference's
+    # are rendered by tools/gen_manifests.py into config/manifests/).
+    "manifests.py": [
+        (
+            f"from {_P}.api.schema import POLICY_GROUP, POLICY_PLURAL\n",
+            f"from {_P}.api.schema import POLICY_GROUP, POLICY_PLURAL\n"
+            f"from {_P}.keys import (\n"
+            "    CONTROLLER_NAME,\n"
+            "    NODE_REPORTER_NAME,\n"
+            "    OPERATOR_IMAGE,\n"
+            ")\n",
+        ),
+        ('CONTROLLER_NAME = "tpu-upgrade-controller"\n', ""),
+        (
+            'NODE_REPORTER_NAME = "tpu-node-reporter"\n'
+            'DEFAULT_IMAGE = "tpu-operator-libs:latest"\n',
+            "DEFAULT_IMAGE = OPERATOR_IMAGE\n",
+        ),
+        (
+            "            missing.append("
+            "f\"{group or 'core'}/{resource}: needs one of {verbs}\")\n"
+            "    return missing\n",
+            "            missing.append("
+            "f\"{group or 'core'}/{resource}: needs one of {verbs}\")\n"
+            "    return missing\n" + _MANIFESTS_MAIN,
+        ),
+    ],
+    "obs/telemetry.py": [
+        (
+            f"from {_P}.consts import get_logger\n",
+            f"from {_P}.consts import get_logger\n"
+            f"from {_P}.fleet.profiles import node_accelerator\n",
+        ),
+        (
+            '            labels = getattr(node, "labels", None) or {}\n'
+            '            gen = labels.get(_accelerator_label(), "")\n',
+            "            gen = node_accelerator(node)\n",
+        ),
+        (
+            "\n\ndef _accelerator_label() -> str:\n"
+            f"    from {_P}.upgrade.consts import (\n"
+            "        GKE_TPU_ACCELERATOR_LABEL,\n"
+            "    )\n"
+            "\n"
+            "    return GKE_TPU_ACCELERATOR_LABEL\n",
+            "",
+        ),
+    ],
+}
 
 
 def _code(source: str) -> str:
@@ -75,20 +351,49 @@ def _code(source: str) -> str:
     return ast.dump(tree)
 
 
+def _reference(module: str) -> str:
+    """The reference's source of ``module`` with the prefix rewritten."""
+    return PREFIX.sub(_P, (REF / module).read_text())
+
+
+def _substituted(module: str) -> str:
+    """The reference's ``module`` with its ``OWN_COPIES`` substitutions
+    made; each reference snippet must occur exactly once."""
+    source = _reference(module)
+    for ref_snippet, port_snippet in OWN_COPIES[module]:
+        assert source.count(ref_snippet) == 1, (module, ref_snippet)
+        source = source.replace(ref_snippet, port_snippet)
+    return source
+
+
 @pytest.mark.parametrize("module", COPIED)
 def test_copy_is_the_reference_code(module):
-    ref = PREFIX.sub("k8s_operator_libs_tpu_torch", (REF / module).read_text())
-    assert _code((PORT / module).read_text()) == _code(ref)
+    assert _code((PORT / module).read_text()) == _code(_reference(module))
+
+
+@pytest.mark.parametrize("module", sorted(OWN_COPIES))
+def test_own_copy_is_the_reference_code_substituted(module):
+    """An own copy is the reference's code but for its listed
+    substitutions: made on the reference, they give the port's AST."""
+    assert _code((PORT / module).read_text()) == _code(_substituted(module))
 
 
 def test_the_copies_are_the_whole_closure():
-    """Every module of the reference's engine closure is copied, or is
-    one of the port's own accelerator-side modules."""
-    own = {"__init__.py", "hw.py", "fleet/profiles.py", "artifacts/gates.py"}
-    for package in ("api", "k8s", "obs", "planning", "topology", "upgrade"):
-        for path in (REF / package).glob("*.py"):
-            assert str(path.relative_to(REF)) in COPIED
-    assert not own & set(COPIED)
+    """Every module of the reference's engine closure and of its
+    operator (controller, metrics, status, manifests, driver) is copied,
+    an own copy, or one of the port's own modules: exactly one of
+    these."""
+    own = {"__init__.py", "hw.py", "fleet/profiles.py", "artifacts/gates.py",
+           "keys.py", "driver/daemonset.py", "manifests_cli.py"}
+    modules = ["controller.py", "metrics.py", "status.py", "manifests.py"]
+    for package in ("api", "driver", "k8s", "obs", "planning", "topology",
+                    "upgrade"):
+        modules += [str(p.relative_to(REF)) for p in (REF / package).glob("*.py")]
+    for module in modules:
+        kinds = (module in COPIED, module in OWN_COPIES, module in own)
+        assert sum(kinds) == 1, (module, kinds)
+    assert not own & (set(COPIED) | set(OWN_COPIES))
+    assert not set(COPIED) & set(OWN_COPIES)
     assert all((PORT / m).is_file() for m in own)
 
 
@@ -234,7 +539,10 @@ def test_both_engines_walk_the_same_states(scenario):
     # The generation tables differ (the port's holds the H100s, the JAX
     # package's the TPUs), and the engine admits the oldest generation
     # first: TPU slices, unknown to the port, may be probed in another
-    # order.  Every node of the GPU pool is one generation to both.
+    # order.  The GPU pool is one generation: h100-sxm to the port, which
+    # reads the nodes' GPU Feature Discovery label, and unknown to the
+    # JAX package, which reads a slice's accelerator alone; either way
+    # its nodes go in id order.
     assert sorted(port_calls) == sorted(ref_calls)
     if scenario is _gpu_nodes:
         assert port_calls == ref_calls
@@ -242,3 +550,159 @@ def test_both_engines_walk_the_same_states(scenario):
     for states in port.values():
         assert states[-1] == "upgrade-done"
         assert "validation-required" in states
+
+
+# -- a GPU node's generation (the engine reads GFD's label) ------------------
+
+from k8s_operator_libs_tpu_torch.fleet import profiles as tprofiles  # noqa: E402
+from k8s_operator_libs_tpu_torch.fleet import scheduler as tscheduler  # noqa: E402
+
+# GPU Feature Discovery's product label of each H100 part, and the
+# generation the port's profiles give it.
+GFD_PRODUCTS = {
+    "h100-pcie": "NVIDIA-H100-PCIe",
+    "h100-sxm": "NVIDIA-H100-80GB-HBM3",
+    "h100-nvl": "NVIDIA-H100-NVL",
+}
+# Node names in the reverse of the profiles' order, so admission by id
+# and admission by generation differ.
+MIXED_POOL = (
+    ("node-0", "h100-nvl"), ("node-1", "h100-sxm"),
+    ("node-2", "h100-sxm"), ("node-3", "h100-pcie"),
+)
+
+
+def _mixed_gpu_pool(fx, api):
+    ds = fx.daemon_set(hash_suffix="h1", revision=1)
+    nodes = [
+        fx.node(name=name, labels={
+            "nvidia.com/gpu.product": GFD_PRODUCTS[gen],
+            "nvidia.com/gpu.count": "8",
+        })
+        for name, gen in MIXED_POOL
+    ]
+    for n in nodes:
+        fx.driver_pod(n, ds, hash_suffix="h1")
+    policy = api.TPUUpgradePolicySpec(
+        auto_upgrade=True,
+        max_parallel_upgrades=1,
+        drain_spec=api.DrainSpec(enable=True, timeout_second=5),
+    )
+    return ds, nodes, policy
+
+
+def _port_state(scenario=_mixed_gpu_pool):
+    """The port's engine on ``scenario`` after the template bump: the
+    cluster, manager, policy and one built state."""
+    fixtures = ENGINES["port"][3]
+    cluster = tk8s.FakeCluster()
+    fx = fixtures.ClusterFixture(cluster)
+    ds, nodes, policy = scenario(fx, tapi)
+    fx.bump_daemon_set_template(ds, "h2", revision=2)
+    fx.auto_recreate_driver_pods(ds, "h2")
+    mgr = tup.ClusterUpgradeStateManager(
+        cluster, keys=tup.UpgradeKeys(), poll_interval_s=0.005,
+        poll_timeout_s=2.0,
+    )
+    state = mgr.build_state(fixtures.NAMESPACE, fixtures.DRIVER_LABELS)
+    return cluster, mgr, policy, state
+
+
+def test_a_gpu_group_sorts_under_its_generation():
+    _, _, _, state = _port_state()
+    groups = {g.id: g for g in state.all_groups()}
+    assert {g.slice_info for g in groups.values()} == {None}
+    for name, gen in MIXED_POOL:
+        node = groups[name].nodes[0]
+        assert tprofiles.node_accelerator(node) == GFD_PRODUCTS[gen]
+        assert tprofiles.group_accelerator(groups[name]) == GFD_PRODUCTS[gen]
+        profile = tprofiles.generation_profile(GFD_PRODUCTS[gen])
+        assert tscheduler.group_sort_key(groups[name]) == (
+            profile.order, -profile.watts_per_chip, gen, name,
+        )
+    # The profiles' order: PCIe, then both SXM (by id), then NVL.
+    assert [g.id for g in tscheduler.order_groups(groups.values())] == [
+        "node-3", "node-1", "node-2", "node-0",
+    ]
+    # Packed admission keeps generation primary: the NVL group with the
+    # largest cost still sorts after the PCIe group with the smallest.
+    costs = {"node-0": 8, "node-1": 2, "node-2": 4, "node-3": 1}
+    packed = sorted(
+        groups.values(),
+        key=lambda g: tscheduler.packed_group_sort_key(g, costs[g.id]),
+    )
+    assert [g.id for g in packed] == ["node-3", "node-2", "node-1", "node-0"]
+
+
+def test_a_node_accelerator_takes_the_tpu_label_first():
+    node = tk8s.Node(metadata=tk8s.ObjectMeta(name="n", labels={
+        "cloud.google.com/gke-accelerator": "nvidia-h100-80gb",
+        "nvidia.com/gpu.product": "NVIDIA-H100-PCIe",
+    }))
+    assert tprofiles.node_accelerator(node) == "NVIDIA-H100-PCIe"
+    node.labels["cloud.google.com/gke-tpu-accelerator"] = "tpu-v5p-slice"
+    assert tprofiles.node_accelerator(node) == "tpu-v5p-slice"
+    assert tprofiles.node_accelerator(tk8s.Node(
+        metadata=tk8s.ObjectMeta(name="m"))) == ""
+
+
+def test_a_mixed_gpu_pool_rolls_in_profile_order():
+    """One slot: the engine admits PCIe, then both SXM, then NVL, and
+    every node ends upgrade-done."""
+    fixtures = ENGINES["port"][3]
+    cluster, mgr, policy, _ = _port_state()
+    keys = mgr.keys
+    admitted: list[str] = []
+    for _ in range(80):
+        mgr.apply_state(
+            mgr.build_state(fixtures.NAMESPACE, fixtures.DRIVER_LABELS),
+            policy,
+        )
+        assert mgr.wait_for_async_work(30.0)
+        states = {
+            name: cluster.get_node(name).labels.get(keys.state_label, "")
+            for name, _ in MIXED_POOL
+        }
+        for name, state in states.items():
+            if state not in ("", "upgrade-required") and name not in admitted:
+                admitted.append(name)
+        if set(states.values()) == {"upgrade-done"}:
+            break
+    else:
+        raise AssertionError(f"the mixed pool did not converge: {states}")
+    assert admitted == ["node-3", "node-1", "node-2", "node-0"]
+
+
+def test_a_preempted_sxm_node_counts_under_its_generation():
+    cluster, mgr, policy, state = _port_state()
+    fixtures = ENGINES["port"][3]
+    cluster.patch_node_annotations(
+        "node-1", {tup.consts.NODE_PREEMPTION_ANNOTATION: "true"}
+    )
+    mgr.apply_state(
+        mgr.build_state(fixtures.NAMESPACE, fixtures.DRIVER_LABELS), policy
+    )
+    assert mgr.wait_for_async_work(30.0)
+    assert mgr.preemptions == {"h100-sxm": 1}
+
+
+def test_the_planner_and_telemetry_read_the_gfd_label():
+    from k8s_operator_libs_tpu_torch.obs.telemetry import TelemetryPlane
+    from k8s_operator_libs_tpu_torch.planning.planner import plan_roll
+
+    _, mgr, policy, state = _port_state()
+    plan = plan_roll(mgr, state, policy, now=1_700_000_000.0)
+    accelerators = {g.group_id: g.accelerator for g in plan.groups}
+    assert accelerators == {n: GFD_PRODUCTS[g] for n, g in MIXED_POOL}
+    waves = {g.group_id: g.wave for g in plan.groups}
+    assert sorted(waves, key=waves.get) == [
+        "node-3", "node-1", "node-2", "node-0",
+    ]
+
+    class _Result:
+        telemetry = {"node-1": {"tflops": 800.0}}
+
+    group = next(g for g in state.all_groups() if g.id == "node-1")
+    plane = TelemetryPlane()
+    plane.observe_validation(group, _Result())
+    assert plane._node_generation["node-1"] == "NVIDIA-H100-80GB-HBM3"

@@ -51,8 +51,16 @@ def test_importing_every_port_module_loads_no_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]"
-    assert len(modules) >= 70  # every module of the port was imported
+    assert len(modules) >= 80  # every module of the port was imported
     assert {
+        "k8s_operator_libs_tpu_torch.controller",
+        "k8s_operator_libs_tpu_torch.driver",
+        "k8s_operator_libs_tpu_torch.driver.daemonset",
+        "k8s_operator_libs_tpu_torch.driver.safe_load_init",
+        "k8s_operator_libs_tpu_torch.keys",
+        "k8s_operator_libs_tpu_torch.manifests",
+        "k8s_operator_libs_tpu_torch.metrics",
+        "k8s_operator_libs_tpu_torch.status",
         "k8s_operator_libs_tpu_torch.artifacts",
         "k8s_operator_libs_tpu_torch.artifacts.dag",
         "k8s_operator_libs_tpu_torch.artifacts.gates",
@@ -69,6 +77,24 @@ def test_importing_every_port_module_loads_no_jax():
         "k8s_operator_libs_tpu_torch.upgrade.sharded",
         "k8s_operator_libs_tpu_torch.upgrade.upgrade_state",
     } <= set(modules)
+
+
+@pytest.mark.parametrize("entry", ["controller", "status", "manifests"])
+def test_the_operator_entry_points_load_no_jax(entry):
+    """``python -m k8s_operator_libs_tpu_torch.<entry>`` imports its
+    module alone: neither jax nor the JAX package comes with it."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module('k8s_operator_libs_tpu_torch.{entry}')\n"
+        "print(sorted(m for m in sys.modules\n"
+        "      if m.split('.')[0] in ('jax', 'k8s_operator_libs_tpu')))\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
 
 
 @pytest.mark.parametrize(
