@@ -37,7 +37,8 @@ Phases:
    and 2^22 elements, at a ragged length aligned and with unaligned
    offsets, and at every shape the main path gives it (the probe's
    reduce-scatter node, the ring shift's one element and 2^17, the
-   sharded canary's tp and dp nodes), each with a NaN in one source,
+   sharded canary's tp and dp nodes, the elastic roll's dp node at dp 3 x
+   tp 2), each with a NaN in one source,
    and the all-reduce (also its persistent form, into new outputs and
    in place) and ring shift (one library call and n K4 launches a call)
    over 2, 3, 4 and 8 members of the card against the plain version,
@@ -51,8 +52,9 @@ Phases:
    SM, the design its tiles were chosen against; and every
    collective at the shapes the sharded and elastic canaries give it
    (the tp all-reduce of [16, 512, 1024] over 4 and 2 members, the
-   gathers of [16, 512, 1024 / tp] along the last dimension, the dp
-   all-reduce of a member's flat gradients over 2 members);
+   gathers of [16, 512, 1024 / tp] along the last dimension, each timed,
+   the dp all-reduce of a member's flat gradients over 2 members, and at
+   tp 2 over 3);
 4. the unfused battery at production size (n=4096 bf16, 1 GiB stream);
 5. the fused battery twice (a warm-up-cache miss, then a hit), with its
    warm time and K2's launches a body (one: the check of C);
@@ -131,18 +133,35 @@ Phases:
    port, scraped over HTTP, serves ``fleet_nodes`` by generation (1, 2,
    1) and ``nodes_by_state`` 4 at ``upgrade-done``, and the status
    CLI's gather shows the same rows.  Its wall time, passes, node
-   windows and launch counts are printed.
+   windows and launch counts are printed;
+14. the elastic rolls and the federated roll (``bench.elastic_roll``,
+   ``bench.federation_roll``): four GFD-labelled nodes, each one slice of
+   the bench-width ``ElasticCanaryRunner`` over 8 members of the card,
+   roll through the engine's elastic negotiation with the workload's
+   coordinator answering the offers, first accepting (dp 2 x tp 4, dp 3
+   x tp 2 while a node is out: 4 accepted, 4 resizes down and 4 up, none
+   left excluded), then declining (4 declined, no resize, every step
+   at dp 2 x tp 4); each ends
+   with every node ``upgrade-done``, and its longest gap between steps is
+   printed with its parts (the slowest step, resize and pass's host
+   time), which must bound it, beside the gap ceiling, each resize's
+   seconds, the passes and the wall.  Then three member clusters of 64
+   GFD-labelled nodes roll under the federation coordinator with cluster
+   ``b`` partitioned for 20 ticks mid-roll: it converges with no write to
+   ``b`` in the window, no budget violation, at most 8 writes of the
+   durable phase record, one partition and one heal.
 
-Kernel launch counts are zeroed just before each path of phases 4-13
+Kernel launch counts are zeroed just before each path of phases 4-14
 (unfused, fused cold, fused warm, agent, local prober, the collective
 paths, the ring paths, the battery with the deep flag, the canary, the
 sharded and elastic canaries, the unfused agent of the labelled node,
-the network-path checks, the roll, the controller's roll) and read just
-after it: each path
+the network-path checks, the roll, the controller's roll, both elastic
+rolls) and read just after it: each path
 names the kernels it must launch (K1 and K2 on the battery paths, K1's
 verifying pass as well on the fused ones, K3 on the ring
-paths, K4 and K5 on the all-reduce, sharded, 8-member network and both
-roll paths, K4 on the ring shift's: 2 x 8 on the ring probe's), and no path
+paths, K4 and K5 on the all-reduce, sharded, 8-member network, both
+roll and both elastic roll paths, K4 on the ring shift's: 2 x 8 on the
+ring probe's), and no path
 may have fallen back from the fused battery.  K4's launches are also split by
 shape (k, len), from the plans' rounds.  A child process that fails or outlives its time fails
 the run.
@@ -412,8 +431,9 @@ def device_ms(fn, iters: int, kernels: tuple, flush_buf=None) -> float:
 
 def member_elems(tp: int) -> int:
     """A member's parameters in the sharded canary at the bench width
-    (dp 2 x tp 4) or the elastic runner's smaller bundle (dp 2 x tp 2):
-    what the dp round reduces."""
+    (dp 2 x tp 4) or an elastic runner's smaller bundle (tp 2: dp 2 with
+    one of two slices out, dp 3 with one of four): what the dp round
+    reduces."""
     from k8s_operator_libs_tpu_torch.workloads import canary as C
 
     cfg = C.CanaryConfig(**BENCH_CANARY)
@@ -449,6 +469,8 @@ def k4_shapes() -> list[tuple[str, int, int]]:
          node(canary, 2)),
         (f"canary dp round node (tp 4), k 2 x {node(member_elems(4), 2)}",
          2, node(member_elems(4), 2)),
+        (f"elastic dp round node (dp 3 x tp 2), k 3 x "
+         f"{node(member_elems(2), 3)}", 3, node(member_elems(2), 3)),
         (f"k 8 x {ALLREDUCE_ELEMS} (32 MiB in)", 8, ALLREDUCE_ELEMS),
         ("k 8 x 4194304 (128 MiB in)", 8, 1 << 22),
     ]
@@ -995,14 +1017,14 @@ def main() -> int:
           f"torch.cat over 2, 3, 4 and 8 members of the card", flush=True)
 
     # The collectives at the shapes the sharded canary (dp 2 x tp 4) and
-    # the elastic runner's smaller bundle (dp 2 x tp 2) give them, each
-    # against its plain version: the tp all-reduce of the row-parallel
-    # outputs and the column inputs' gradients, the gathers of the
-    # embedding and the logits along the last dimension, and the dp
-    # all-reduce of one member's flat gradients (divisor dp).
+    # the elastic runners' smaller bundles (dp 2 or 3 x tp 2) give them,
+    # each against its plain version: the tp all-reduce of the
+    # row-parallel outputs and the column inputs' gradients, the gathers
+    # of the embedding and the logits along the last dimension, and the
+    # dp all-reduce of one member's flat gradients (divisor dp).
     local_batch = BENCH_CANARY["batch"] // 2
     seq, width = BENCH_CANARY["seq_len"], BENCH_CANARY["d_model"]
-    for tp in (4, 2):
+    for dp, tp in ((2, 4), (2, 2), (3, 2)):
         shards = [torch.randn(local_batch, seq, width, device=dev,
                               generator=gen) for _ in range(tp)]
         want = torch.empty(shards[0].shape, device=dev)
@@ -1018,18 +1040,18 @@ def main() -> int:
                                   f"member {j}")
         del shards, pieces, want
         grads = [torch.randn(member_elems(tp), device=dev, generator=gen)
-                 for _ in range(2)]
+                 for _ in range(dp)]
         want = torch.empty(grads[0].shape, device=dev)
-        K.peer_reduce_plain(want, grads, 0, 2.0)
-        for j, out in enumerate(K.all_reduce(grads, 2.0)):
-            same_bits(out, want, f"canary dp all-reduce of 2 x "
+        K.peer_reduce_plain(want, grads, 0, float(dp))
+        for j, out in enumerate(K.all_reduce(grads, float(dp))):
+            same_bits(out, want, f"canary dp all-reduce of {dp} x "
                                  f"{grads[0].numel()} (tp {tp}), member {j}")
         del grads, want
     print(f"[kernels] all_reduce and all_gather match their plain versions "
-          f"exactly at the sharded canary's shapes (tp 4 and 2: [16, 512, "
+          f"exactly at the sharded canaries' shapes (tp 4 and 2: [16, 512, "
           f"1024] over tp, [16, 512, 1024 / tp] gathered along -1, the dp "
-          f"round of {member_elems(4)} and {member_elems(2)} elements over "
-          f"2)", flush=True)
+          f"round of {member_elems(4)} elements over 2 and of "
+          f"{member_elems(2)} over 2 and 3)", flush=True)
 
     flush_buf = torch.empty(FLUSH_BYTES // 4, device=dev)
 
@@ -1188,16 +1210,19 @@ def main() -> int:
     timing["peer_reduce"] = dict(shapes[0], shapes=shapes)
 
     # K5 at the main path's shapes: the all-reduce's all-gather launch (7
-    # chunks of 2^17 from the other members) and the sharded canary's
-    # gathers (4 pieces of [16, 512, 256] fp32: the embedding's width and
-    # the logits' vocab at tp 4).  Bytes: each piece read once, written
-    # once.  The library call is torch.cat of the pieces, timed only.
+    # chunks of 2^17 from the other members) and the sharded canaries'
+    # gathers (4 pieces of [16, 512, 256] fp32, the embedding's width and
+    # the logits' vocab at tp 4, and 2 of [16, 512, 512] at the elastic
+    # bundles' tp 2).  Bytes: each piece read once, written once.  The
+    # library call is torch.cat of the pieces, timed only.
     shapes = []
     chunk = ALLREDUCE_ELEMS // ICI_MEMBERS
     for label, k, rows, n, iters in (
         (f"all-reduce all-gather launch, k 7 x {chunk}", 7, 1, chunk, 200),
         ("canary gather along -1, k 4 x [16, 512, 256]", 4, 16 * 512, 256,
          50),
+        ("elastic gather along -1 (tp 2), k 2 x [16, 512, 512]", 2,
+         16 * 512, 512, 50),
     ):
         pieces = [torch.randn(rows, n, device=dev, generator=gen)
                   for _ in range(k)]
@@ -1218,7 +1243,7 @@ def main() -> int:
         if rows > 1:
             whole_ms = time_ms(lambda: K.all_gather(pieces, -1), iters)
             print(f"[timing] all_gather over {k} members of the card, "
-                  f"[16, 512, 256] along -1, the whole function (one round "
+                  f"[16, 512, {n}] along -1, the whole function (one round "
                   f"of {k} K5 launches, each writing the gathered layout): "
                   f"{whole_ms:.4f} ms by events, bound {k * b_ms:.4f} ms "
                   f"(bytes), {k} x torch.cat "
@@ -2282,10 +2307,93 @@ def main() -> int:
     print(f"[controller] phase 13 took {time.perf_counter() - t13:.2f} s",
           flush=True)
 
+    # -- 14. the elastic rolls and the federated roll -----------------------
+    t14 = time.perf_counter()
+    torch.cuda.empty_cache()
+    negotiated = {
+        "accept": ({"accept": 4, "decline": 0, "timeout": 0},
+                   {"down": 4, "up": 4}, 8),
+        "decline": ({"accept": 0, "decline": 4, "timeout": 0},
+                    {"down": 0, "up": 0}, 0),
+    }
+    for accept in (True, False):
+        variant = "accept" if accept else "decline"
+        er = on_path(
+            f"elastic roll ({variant}), bench-width canary over "
+            f"{len(pool_members)} members in {bench_mod.ELASTIC_N_SLICES} "
+            f"slices",
+            lambda: bench_mod.elastic_roll(pool_members, accept),
+            sharded_kernels,
+        )
+        parts = (er["slowest_step_s"] + er["slowest_resize_s"]
+                 + er["slowest_pass_host_s"])
+        print(f"[elastic-roll] {variant}: converged={er['converged']} in "
+              f"{er['wall_s']:.3f} s, {er['passes']} passes, "
+              f"{er['canary_steps']} steps (median "
+              f"{er['median_step_s'] * 1e3:.3f} ms), meshes (dp, tp) "
+              f"{er['meshes']}; negotiations {er['negotiations']}, resizes "
+              f"{er['resizes']}, runner resizes {er['runner_resizes']}, "
+              f"leftover excluded {er['leftover_excluded']}; on {card}",
+              flush=True)
+        print(f"[elastic-roll] {variant}: max_gap_s {er['max_gap_s']:.4f} "
+              f"(ceiling {er['gap_ceiling_s']} s, downtime "
+              f"{er['downtime_s']:.4f} s); its parts at most: slowest step "
+              f"{er['slowest_step_s']:.4f} s + slowest resize "
+              f"{er['slowest_resize_s']:.4f} s + slowest pass's host time "
+              f"{er['slowest_pass_host_s']:.4f} s = {parts:.4f} s; the "
+              f"roll's K4 {er['launches']['peer_reduce']}, K5 "
+              f"{er['launches']['peer_gather']} launches; on {card}",
+              flush=True)
+        for e in er["resize_events"]:
+            print(f"[elastic-roll] {variant}: resize {e['direction']} "
+                  f"(slice {e['slice']}): {e['seconds']:.3f} s on {card}",
+                  flush=True)
+        want_neg, want_resizes, want_runner = negotiated[variant]
+        require(er["converged"] and er["negotiations"] == want_neg
+                and er["resizes"] == want_resizes
+                and er["runner_resizes"] == want_runner
+                and er["leftover_excluded"] == 0,
+                f"elastic roll ({variant}): {er}")
+        require(er["canary_steps"]
+                == bench_mod.ELASTIC_STEPS_PER_PASS * er["passes"]
+                and er["meshes"] == ([(2, 4), (3, 2)] if accept
+                                     else [(2, 4)]),
+                f"elastic roll ({variant}): {er['canary_steps']} steps over "
+                f"{er['passes']} passes, meshes {er['meshes']}")
+        require(0 < er["max_gap_s"] <= parts,
+                f"elastic roll ({variant}): gap {er['max_gap_s']} past its "
+                f"parts {parts}")
+        require(min(er["launches"].values()) > 0,
+                f"elastic roll ({variant}): launches {er['launches']}")
+        del er
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fed = bench_mod.federation_roll()
+    fed_s = time.perf_counter() - t0
+    print(f"[federation] {fed['clusters']} clusters of "
+          f"{fed['nodes_per_cluster']} GFD-labelled nodes: "
+          f"converged={fed['converged']} in {fed['ticks']} ticks, "
+          f"{fed_s:.3f} s of host time; partition window "
+          f"{fed['partition_window_ticks']} ticks "
+          f"({fed['partition_window_skips']} skipped, "
+          f"{fed['partition_window_writes']} writes), budget "
+          f"violations {fed['global_budget_violations']}, peak unavailable "
+          f"{fed['peak_global_unavailable']}, store writes "
+          f"{fed['store_writes']}, partitions {fed['partitions_detected']}, "
+          f"heals {fed['heals']}", flush=True)
+    require(fed["converged"] and fed["partition_window_ticks"] == 20
+            and fed["partition_window_writes"] == 0
+            and fed["global_budget_violations"] == 0
+            and fed["store_writes"] <= bench_mod.FED_STORE_WRITE_CEILING
+            and fed["partitions_detected"] == 1 and fed["heals"] == 1,
+            f"federated roll: {fed}")
+    print(f"[elastic-roll] phase 14 took {time.perf_counter() - t14:.2f} s",
+          flush=True)
+
     print("[launches] main path total: "
           + ", ".join(f"{k} {n}" for k, n in launches.items()), flush=True)
 
-    # -- 14. kernel line, card, result --------------------------------------
+    # -- the kernel line, card, result -----------------------------------
     source = {
         "stream_increment_":
             "k8s_operator_libs_tpu_torch/kernels/csrc/battery_kernels.cu",

@@ -32,7 +32,14 @@ prober, agents and canary:
 - **rolls**: sequential (``maxParallelUpgrades`` 1, the validation gate
   holding the slot) with the canary training on ``pool-0`` and paused
   while that node is cordoned; the attribution check (one node's missing
-  report must fail that node's gate by name); then pipelined validation.
+  report must fail that node's gate by name); then pipelined validation;
+- **elastic rolls** (:func:`elastic_roll`): the bench-width canary sharded
+  over the 8 members in four slices, one a node, answers the engine's
+  exclusion offers through the workload coordinator (accept: dp 2 × tp
+  4, dp 3 × tp 2 while a node is out), then declines them all;
+- **federated roll** (:func:`federation_roll`): three member clusters of
+  64 GFD-labelled nodes, one partitioned mid-roll for 20 coordinator
+  ticks; host work only.
 
 Headline: the canary's longest gap between steps during the sequential
 roll, against the 120 s budget; when the roll did not complete, or
@@ -69,10 +76,19 @@ from typing import Optional, Sequence
 
 from k8s_operator_libs_tpu_torch.api import (
     DrainSpec,
+    ElasticCoordinationSpec,
+    FederationCanarySpec,
+    FederationClusterSpec,
+    FederationSpec,
+    IntOrString,
     SliceHealthGateSpec,
     TPUUpgradePolicySpec,
 )
 from k8s_operator_libs_tpu_torch.bench_io import emit
+from k8s_operator_libs_tpu_torch.coordination import (
+    RunnerElasticRuntime,
+    WorkloadCoordinator,
+)
 from k8s_operator_libs_tpu_torch.controller import (
     ControllerConfig,
     UpgradeController,
@@ -85,6 +101,16 @@ from k8s_operator_libs_tpu_torch.driver.daemonset import (
     TEMPLATE_HASH_ANNOTATION,
 )
 from k8s_operator_libs_tpu_torch.entry import members_of
+from k8s_operator_libs_tpu_torch.federation import (
+    ClusterRegistry,
+    FederationCoordinator,
+    FederationStateStore,
+    ensure_federation_kind,
+)
+from k8s_operator_libs_tpu_torch.federation.coordinator import (
+    PHASE_DONE,
+    PHASE_PROMOTED,
+)
 from k8s_operator_libs_tpu_torch.health import NodeReportProber, run_host_probe
 from k8s_operator_libs_tpu_torch.health.agent import HealthAgent
 from k8s_operator_libs_tpu_torch.health.fused import battery_stats
@@ -109,6 +135,7 @@ from k8s_operator_libs_tpu_torch.k8s import (
     Pod,
     PodPhase,
 )
+from k8s_operator_libs_tpu_torch.k8s.faults import FaultSchedule
 from k8s_operator_libs_tpu_torch.k8s.objects import (
     DaemonSetSpec,
     DaemonSetStatus,
@@ -117,12 +144,22 @@ from k8s_operator_libs_tpu_torch.k8s.objects import (
     PodStatus,
     PodTemplateSpec,
 )
+from k8s_operator_libs_tpu_torch.k8s.retry import (
+    CircuitBreaker,
+    ResilientClient,
+    RetryPolicy,
+)
+from k8s_operator_libs_tpu_torch.kernels import launch_counts
 from k8s_operator_libs_tpu_torch.metrics import MetricsServer
 from k8s_operator_libs_tpu_torch.status import gather
-from k8s_operator_libs_tpu_torch.upgrade import ClusterUpgradeStateManager
+from k8s_operator_libs_tpu_torch.upgrade import (
+    ClusterUpgradeStateManager,
+    ProbeResult,
+)
 from k8s_operator_libs_tpu_torch.workloads.canary import (
     CanaryConfig,
     CanaryRunner,
+    ElasticCanaryRunner,
 )
 
 DOWNTIME_BUDGET_S = 120.0  # the north star: under 2 min of interruption
@@ -750,6 +787,313 @@ def controller_roll(members: Sequence, size: BatterySize = IN_FLIGHT) -> dict:
     }
 
 
+# The elastic roll (the JAX package's tools/bench_guard.py:758-906): each
+# of four GFD-labelled nodes is one slice of the elastic canary's members.
+ELASTIC_N_SLICES = 4
+ELASTIC_MAX_PASSES = 200
+ELASTIC_WARMUP_STEPS = 4
+ELASTIC_STEPS_PER_PASS = 3
+# The JAX package's rule (bench_guard.py:134-141): a gap at the cadence of
+# a step plus a resize is the job running, not an interruption, and
+# downtime counts only a gap past the ceiling.  Its 0.5 s was set for a
+# 32-wide canary stepping in about 5 ms on a CPU mesh.  At the bench
+# width over 8 members of one NVIDIA H100 80GB HBM3 (700 W) the slowest
+# step took up to 0.810 s and the slowest resize, 103 M parameters and
+# two Adam states through numpy, up to 2.447 s (chip_smoke.py phases 10
+# and 14, three runs): 3.257 s together.  The ceiling is about twice
+# that, the spread of host-bound times across runs on the card.
+ELASTIC_GAP_CEILING_S = 6.5
+
+
+class PassingProber:
+    """A validation prober whose every verdict passes: the elastic roll
+    measures the negotiation, not the gate."""
+
+    def probe(self, group) -> ProbeResult:
+        return ProbeResult(True, "the elastic roll does not gate")
+
+
+class ElasticPool:
+    """The elastic roll's fleet: ``ELASTIC_N_SLICES`` GFD-labelled HGX
+    nodes ``pool-0`` … in no slice (each node its own group) under a
+    bumped driver DaemonSet, the JAX stage's engine and policy with a gate
+    that passes, and a workload coordinator over ``runtime`` whose slice
+    ids are the nodes' names, answering every offer with ``accept``."""
+
+    def __init__(self, runtime, accept: bool) -> None:
+        self.cluster = FakeCluster()
+        fleet = _Fleet(self.cluster)
+        ds = fleet.daemon_set("v1", 1)
+        self.slice_ids = [f"pool-{i}" for i in range(ELASTIC_N_SLICES)]
+        for sid in self.slice_ids:
+            fleet.driver_pod(fleet.gpu_node(sid), ds, "v1")
+        fleet.bump_daemon_set_template(ds, "v2", 2)
+        fleet.auto_recreate_driver_pods(ds, "v2")
+        self.mgr = ClusterUpgradeStateManager(
+            self.cluster, keys=KEYS, poll_interval_s=0.005, poll_timeout_s=2.0
+        )
+        self.mgr.with_validation_enabled(PassingProber())
+        self.policy = TPUUpgradePolicySpec(
+            auto_upgrade=True,
+            max_parallel_upgrades=1,
+            max_unavailable=IntOrString("25%"),
+            unavailability_unit="slice",
+            drain_spec=DrainSpec(enable=True, timeout_second=5),
+            elastic=ElasticCoordinationSpec(
+                enable=True, offer_timeout_second=60, rejoin_timeout_second=60
+            ),
+        )
+        self.coordinator = WorkloadCoordinator(
+            self.cluster, KEYS, "bench-canary",
+            {sid: [sid] for sid in self.slice_ids}, runtime,
+            accept_policy=lambda sid: accept,
+        )
+        self.coordinator.register()
+
+    def one_pass(self) -> None:
+        """One engine pass, then one poll of the workload's coordinator."""
+        self.mgr.apply_state(
+            self.mgr.build_state(NAMESPACE, DRIVER_LABELS, self.policy),
+            self.policy,
+        )
+        if not self.mgr.wait_for_async_work(10.0):
+            raise RuntimeError("async upgrade work did not drain")
+        self.coordinator.poll_once()
+
+    def states(self) -> dict[str, str]:
+        return {sid: self.cluster.get_node(sid).labels.get(KEYS.state_label, "")
+                for sid in self.slice_ids}
+
+    def done(self) -> bool:
+        return all(s == "upgrade-done" for s in self.states().values())
+
+    def leftover_excluded(self) -> int:
+        return sum(
+            self.cluster.get_node(sid).annotations.get(
+                KEYS.elastic_excluded_annotation) == "true"
+            for sid in self.slice_ids
+        )
+
+
+def elastic_roll(
+    members: Sequence, accept: bool, cfg: CanaryConfig = BENCH_CANARY
+) -> dict:
+    """One roll of an :class:`ElasticPool` through the elastic
+    negotiation, with an ``ElasticCanaryRunner`` over ``members`` (slice
+    ``i``, node ``pool-i``, owns a contiguous block of them) answering the
+    offers: ``accept`` excludes and rejoins every slice, otherwise every
+    offer is declined and each node takes the drain path.  Each pass is
+    one engine pass, one poll of the workload's coordinator, then
+    ``ELASTIC_STEPS_PER_PASS`` canary steps.
+
+    Returns the JAX stage's record (``max_gap_s`` the canary's longest
+    gap between steps, ``downtime_s`` 0.0 while it stays under
+    ``ELASTIC_GAP_CEILING_S``) and, beside it, the passes, the wall, the
+    parts any gap is made of (the slowest step, resize and pass's host
+    time, resizes excluded), the (dp, tp) meshes the steps ran on and the
+    kernels launched in the roll."""
+    runner = ElasticCanaryRunner(cfg, devices=list(members),
+                                 n_slices=ELASTIC_N_SLICES, seed=0)
+    pool = ElasticPool(
+        RunnerElasticRuntime(runner, {f"pool-{i}": i
+                                      for i in range(ELASTIC_N_SLICES)}),
+        accept,
+    )
+    for _ in range(ELASTIC_WARMUP_STEPS):  # set-up stays out of the window
+        runner.run_step()
+    runner.reset_timing()
+
+    before = launch_counts()
+    t0 = mark = time.monotonic()
+    step_s: list[float] = []
+    pass_host_s: list[float] = []
+    meshes: set[tuple[int, int]] = set()
+    converged = False
+    passes = 0
+    while passes < ELASTIC_MAX_PASSES and not converged:
+        passes += 1
+        resized = len(runner.resize_events)
+        pool.one_pass()
+        # From the last step of the pass before to this pass's first,
+        # less the resizes: a gap is this, a resize and a step.
+        pass_host_s.append(
+            time.monotonic() - mark
+            - sum(e["seconds"] for e in runner.resize_events[resized:])
+        )
+        for _ in range(ELASTIC_STEPS_PER_PASS):
+            s0 = time.monotonic()
+            runner.run_step()
+            step_s.append(runner.step_times[-1] - s0)
+            meshes.add((runner.mesh.shape["dp"], runner.mesh.shape["tp"]))
+        mark = runner.step_times[-1]
+        converged = pool.done()
+    wall_s = time.monotonic() - t0
+    max_gap_s = runner.max_gap_seconds(until=time.monotonic())
+    after = launch_counts()
+    downtime_s = 0.0 if max_gap_s <= ELASTIC_GAP_CEILING_S else max_gap_s
+    resize_s = [e["seconds"] for e in runner.resize_events]
+    return {
+        "variant": "accept" if accept else "decline",
+        "slices": ELASTIC_N_SLICES,
+        "devices": len(members),
+        "physical_partition": runner.physical,
+        "converged": converged,
+        "downtime_s": downtime_s,
+        "max_gap_s": max_gap_s,
+        "median_step_s": runner.perf_summary().get("median_step_s", 0.0),
+        "canary_steps": len(runner.step_times),
+        "negotiations": dict(pool.mgr.elastic_negotiations),
+        "resizes": dict(pool.mgr.elastic_resizes),
+        "runner_resizes": len(runner.resize_events),
+        "leftover_excluded": pool.leftover_excluded(),
+        "gap_ceiling_s": ELASTIC_GAP_CEILING_S,
+        "passes": passes,
+        "wall_s": wall_s,
+        "slowest_step_s": max(step_s),
+        "slowest_resize_s": max(resize_s, default=0.0),
+        "slowest_pass_host_s": max(pass_host_s),
+        "resize_events": runner.resize_events,
+        "meshes": sorted(meshes),
+        "launches": {k: after[k] - before[k]
+                     for k in ("peer_reduce", "peer_gather")},
+    }
+
+
+# The federated roll (the JAX package's tools/bench_guard.py:2017-2210):
+# three member clusters, one a region, cluster "b" partitioned mid-roll.
+FED_N_CLUSTERS = 3
+FED_NODES_PER_CLUSTER = 64
+FED_PARTITION_TICKS = 20
+FED_MAX_TICKS = 600
+# The durable phase record's writes a roll may take (bench_guard.py:261).
+FED_STORE_WRITE_CEILING = 8
+_MUTATING = ("patch", "create", "update", "delete", "evict", "set_")
+
+
+def _writes(cluster: FakeCluster) -> int:
+    return int(sum(v for k, v in cluster.stats.items()
+                   if str(k).startswith(_MUTATING)))
+
+
+def federation_roll(
+    n_clusters: int = FED_N_CLUSTERS,
+    nodes_per_cluster: int = FED_NODES_PER_CLUSTER,
+    partition_ticks: int = FED_PARTITION_TICKS,
+) -> dict:
+    """A federated roll over ``n_clusters`` member clusters of
+    ``nodes_per_cluster`` GFD-labelled HGX H100 nodes each (in no slice,
+    so each node is its own group), behind the JAX stage's resilient
+    clients.  The canary region (``r1``) rolls first and promotes on a
+    zero-length soak; then cluster ``b``, once mid-roll, loses its link
+    (every call a server error) for ``partition_ticks`` coordinator ticks
+    while the rest keeps rolling.  Returns the JAX stage's record.  No
+    device work."""
+    members = {}
+    regions = {}
+    for idx in range(n_clusters):
+        name = chr(ord("a") + idx)
+        regions[name] = f"r{idx + 1}"
+        fake = FakeCluster()
+        fleet = _Fleet(fake)
+        ds = fleet.daemon_set("hash-1", 1)
+        nodes = [fleet.gpu_node(f"{name}-s{i:02d}")
+                 for i in range(nodes_per_cluster)]
+        for node in nodes:
+            fleet.driver_pod(node, ds, "hash-1")
+        fleet.bump_daemon_set_template(ds, "hash-2", 2)
+        fleet.auto_recreate_driver_pods(ds, "hash-2")
+        client = ResilientClient(
+            fake,
+            retry_policy=RetryPolicy(max_attempts=2, base_backoff_s=0.0005,
+                                     max_backoff_s=0.001, jitter=0.0),
+            breaker=CircuitBreaker(failure_threshold=2, reset_timeout_s=0.0),
+        )
+        mgr = ClusterUpgradeStateManager(
+            client, keys=KEYS, poll_interval_s=0.005, poll_timeout_s=2.0
+        )
+        members[name] = (fake, mgr, [n.name for n in nodes])
+
+    policy = TPUUpgradePolicySpec(
+        auto_upgrade=True,
+        max_parallel_upgrades=16,
+        max_unavailable=IntOrString("50%"),
+        drain_spec=DrainSpec(enable=False),
+        federation=FederationSpec(
+            enable=True,
+            clusters=[FederationClusterSpec(name=n, region=regions[n])
+                      for n in members],
+            canary=FederationCanarySpec(region="r1", soak_second=0),
+            max_unavailable=IntOrString("50%"),
+        ),
+    )
+    policy.validate()
+    registry = ClusterRegistry(degraded_after=1, partitioned_after=2,
+                               heal_probes=1)
+    for name, (_, mgr, _) in members.items():
+        registry.add(name, regions[name], mgr.client, manager=mgr)
+    store_client = FakeCluster()
+    ensure_federation_kind(store_client)
+    store = FederationStateStore(store_client, NAMESPACE)
+    coord = FederationCoordinator(
+        registry, policy, NAMESPACE, DRIVER_LABELS, store,
+        identity="bench-fed", term=1, async_wait_s=10.0,
+    )
+
+    def states(name: str) -> list[str]:
+        fake, _, nodes = members[name]
+        return [fake.get_node(n, cached=False).labels.get(KEYS.state_label,
+                                                          "")
+                for n in nodes]
+
+    def cluster_done(name: str) -> bool:
+        return set(states(name)) == {"upgrade-done"}
+
+    target = members["b"][0]
+    ticks = window_skips = 0
+    window_writes = writes_before = partitioned_at = healed_at = -1
+    b_started = False
+    while ticks < FED_MAX_TICKS:
+        summary = coord.tick()
+        ticks += 1
+        if partitioned_at < 0 and coord.phase in (PHASE_PROMOTED,
+                                                  PHASE_DONE):
+            # Cut the link once the other regions are really mid-roll.
+            b_started = any(states("b"))
+            if b_started and not cluster_done("b"):
+                target.fault_schedule = FaultSchedule().server_error("")
+                writes_before = _writes(target)
+                partitioned_at = ticks
+        elif partitioned_at > 0 and healed_at < 0:
+            if "b" in (summary.get("skippedPartitioned") or []):
+                window_skips += 1
+            if ticks - partitioned_at >= partition_ticks:
+                window_writes = _writes(target) - writes_before
+                target.fault_schedule = None
+                healed_at = ticks
+        if coord.phase == PHASE_DONE and all(map(cluster_done, members)):
+            break
+    return {
+        "stage": "federation",
+        "clusters": n_clusters,
+        "nodes_per_cluster": nodes_per_cluster,
+        "nodes": n_clusters * nodes_per_cluster,
+        "ticks": ticks,
+        "converged": coord.phase == PHASE_DONE
+        and all(map(cluster_done, members)),
+        "partition_started": b_started and partitioned_at > 0,
+        "partition_window_ticks": (healed_at - partitioned_at
+                                   if healed_at > 0 else -1),
+        "partition_window_skips": window_skips,
+        "partition_window_writes": window_writes,
+        "global_budget_violations": coord.global_ledger.violations,
+        "global_budget_denials": coord.global_ledger.denials,
+        "peak_global_unavailable": coord.global_ledger.peak_unavailable,
+        "store_writes": store.writes,
+        "partitions_detected": registry.stats.get("partitions", 0),
+        "heals": registry.stats.get("heals", 0),
+    }
+
+
 def battery_stage(members: Sequence) -> dict:
     """The production-size battery over ``members``: unfused cold and
     warm, then fused cold and warm."""
@@ -802,6 +1146,16 @@ def main() -> int:
     pipe = roll(members, canary, lock, pipeline=True, attribution=False)
     log(f"pipelined roll: complete={pipe['complete']} wall "
         f"{pipe['wall_s']:.3f} s downtime {pipe['downtime_s']:.3f} s")
+    elastic = {}
+    for accept in (True, False):
+        r = elastic_roll(members, accept)
+        elastic[r["variant"]] = r
+        log(f"elastic roll ({r['variant']}): converged={r['converged']} "
+            f"wall {r['wall_s']:.3f} s max gap {r['max_gap_s']:.3f} s "
+            f"negotiations {r['negotiations']}")
+    federation = federation_roll()
+    log(f"federated roll: converged={federation['converged']} "
+        f"{federation['ticks']} ticks")
 
     complete = seq["complete"]
     attribution = seq["attribution"]
@@ -817,6 +1171,8 @@ def main() -> int:
                    "params": canary.param_count()},
         "sequential": seq,
         "pipelined": pipe,
+        "elastic": elastic,
+        "federation": federation,
         "agent_sizes": {"in_flight": asdict(IN_FLIGHT),
                         "background": asdict(BACKGROUND),
                         "max_iters": AGENT_MAX_ITERS},
@@ -842,6 +1198,11 @@ def main() -> int:
         "pipelined_complete": pipe["complete"],
         "pipelined_wall_s": _num(pipe["wall_s"], 3),
         "pipelined_downtime_s": _num(pipe["downtime_s"], 3),
+        "elastic_converged": elastic["accept"]["converged"],
+        "elastic_max_gap_s": _num(elastic["accept"]["max_gap_s"], 3),
+        "elastic_downtime_s": _num(elastic["accept"]["downtime_s"], 3),
+        "elastic_decline_converged": elastic["decline"]["converged"],
+        "federation_converged": federation["converged"],
         "canary_steps": seq["canary_steps"],
         "canary_median_step_s": _num(
             seq["canary_perf"].get("median_step_s"), 4),
