@@ -149,20 +149,41 @@ Phases:
    GFD-labelled nodes roll under the federation coordinator with cluster
    ``b`` partitioned for 20 ticks mid-roll: it converges with no write to
    ``b`` in the window, no budget violation, at most 8 writes of the
-   durable phase record, one partition and one heal.
+   durable phase record, one partition and one heal;
+15. the bench's DCN, cross-ring, failure-injection and heterogeneous
+   stages: the DCN roll (``bench.roll(..., dcn=True)``: the four nodes
+   as rings ``ring-a`` and ``ring-b`` by ``nvidia.com/gpu-dcn-group``,
+   two upgrades at a time, the bench-width canary as ring-a's pair)
+   completes with one node of a ring out at most and two nodes out at
+   once; the cross-ring collective (``bench.dcn_collective_stage``: two
+   worker processes, ``python -m k8s_operator_libs_tpu_torch.bench
+   --dcn-worker``, one a ring, in a gloo world, each its node's agent
+   with the deep probe over 8 members of the card, publishing through
+   the API server) passes ``dcn_collective`` on both rings and both
+   gates with ``require_dcn_check``, and each worker prints its own
+   launches, which must hold K1, its verifying pass, K2, K3, K4 and K5;
+   the failure-injection roll (``bench.failure_injection_roll``) fails
+   ``pool-1`` by name after its agent dies, within the 30 s gate timeout
+   (and the slack the bench states) of its validation entry, names it in
+   a stuck event, recovers it, quarantines and rejoins ``pool-2`` once,
+   clears ``pool-3``'s stuck pod and recovers from the engine's kill;
+   the heterogeneous stage (``bench.heterogeneous_roll``) admits PCIe
+   then SXM, moves nothing of the held NVL pool while its window is
+   closed, and converges.
 
-Kernel launch counts are zeroed just before each path of phases 4-14
+Kernel launch counts are zeroed just before each path of phases 4-15
 (unfused, fused cold, fused warm, agent, local prober, the collective
 paths, the ring paths, the battery with the deep flag, the canary, the
 sharded and elastic canaries, the unfused agent of the labelled node,
 the network-path checks, the roll, the controller's roll, both elastic
-rolls) and read just after it: each path
-names the kernels it must launch (K1 and K2 on the battery paths, K1's
-verifying pass as well on the fused ones, K3 on the ring
-paths, K4 and K5 on the all-reduce, sharded, 8-member network, both
+rolls, the DCN and failure-injection rolls) and read just after it: each
+path names the kernels it must launch (K1 and K2 on the battery paths,
+K1's verifying pass as well on the fused ones, K3 on the ring
+paths, K4 and K5 on the all-reduce, sharded, 8-member network, every
 roll and both elastic roll paths, K4 on the ring shift's: 2 x 8 on the
 ring probe's), and no path
-may have fallen back from the fused battery.  K4's launches are also split by
+may have fallen back from the fused battery.  The cross-ring workers are
+processes of their own: each counts its launches and prints them.  K4's launches are also split by
 shape (k, len), from the plans' rounds.  A child process that fails or outlives its time fails
 the run.
 Any failure exits non-zero and prints no result; so does a machine
@@ -2388,6 +2409,106 @@ def main() -> int:
             and fed["partitions_detected"] == 1 and fed["heals"] == 1,
             f"federated roll: {fed}")
     print(f"[elastic-roll] phase 14 took {time.perf_counter() - t14:.2f} s",
+          flush=True)
+
+    # -- 15. the DCN roll, the cross-ring collective, the failure roll and
+    # the heterogeneous stage ----------------------------------------------
+    t15 = time.perf_counter()
+    torch.cuda.empty_cache()
+    dcn_canary = C.CanaryRunner(bench_mod.BENCH_CANARY, device=dev)
+    for _ in range(3):
+        dcn_canary.run_step()
+    stage_fallbacks = fused.battery_stats()["fallbacks"]
+    dr = on_path(
+        "dcn roll, 2 rings of 2 HGX nodes",
+        lambda: bench_mod.roll(pool_members, dcn_canary, threading.Lock(),
+                               pipeline=False, attribution=False, dcn=True),
+        fused_kernels + collective_kernels,
+    )
+    dcn_finals = {node_name: state for _, node_name, state in
+                  dr["transitions"]}
+    print(f"[dcn-roll] {bench_mod.N_NODES} HGX H100 nodes in rings "
+          f"{bench_mod.DCN_RINGS}, two at a time: complete={dr['complete']} "
+          f"in {dr['wall_s']:.3f} s, {dr['ticks']} passes; ring high-water "
+          f"{dr['max_ring_unavailable']}, nodes out at once "
+          f"{dr['max_concurrent_unavailable']}; the pair "
+          f"{dr['canary_nodes']}'s downtime {dr['downtime_s']:.3f} s over "
+          f"{dr['canary_steps']} steps; node windows "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in
+                      dr["node_windows_s"].items() if v is not None)
+          + f"; lock wait share {dr['lock']['wait_share']:.4f}, "
+          f"{dr['lock']['wait_in_longest_gap_s']:.3f} s of the longest gap; "
+          f"on {card}", flush=True)
+    require(dr["complete"] and dcn_finals == {
+        f"pool-{i}": "upgrade-done" for i in range(bench_mod.N_NODES)
+    }, f"dcn roll: complete={dr['complete']} states {dcn_finals}")
+    require(dr["max_ring_unavailable"] == 1
+            and dr["max_concurrent_unavailable"] == 2,
+            f"dcn roll: ring high-water {dr['max_ring_unavailable']}, "
+            f"concurrency {dr['max_concurrent_unavailable']}")
+    require(dr["canary_error"] is None and math.isfinite(dr["downtime_s"])
+            and 0 < dr["downtime_s"] < bench_mod.DOWNTIME_BUDGET_S,
+            f"dcn roll canary: {dr['canary_error']} {dr['downtime_s']}")
+    del dcn_canary
+    torch.cuda.empty_cache()
+    col = bench_mod.dcn_collective_stage()
+    print(f"[dcn-collective] 2 worker processes, one a ring, each its "
+          f"node's agent over {bench_mod.GPUS_PER_NODE} members of the card "
+          f"(deep probe, battery {col['size']}): ok={col['ok']} in "
+          f"{col['wall_s']:.3f} s; {col['backend']}", flush=True)
+    for ring in ("ring-a", "ring-b"):
+        v = col["rings"].get(ring, {})
+        print(f"[dcn-collective] {ring}: dcn_collective "
+              f"{v.get('dcn_collective')}, healthy {v.get('healthy')}, "
+              f"world size {v.get('world_size')}, failed {v.get('failed')} "
+              f"{v.get('error', '')}; gate {col['gates'][ring]}", flush=True)
+        counts = v.get("launches") or {}
+        print(f"[launches] cross-ring worker {ring} (its own process, "
+              "counted there): "
+              + ", ".join(f"{k} {n}" for k, n in counts.items()), flush=True)
+        for kname in fused_kernels + ring_kernels + collective_kernels:
+            require(counts.get(kname, 0) > 0,
+                    f"{kname} was not launched by the {ring} worker")
+    require(col["ok"], f"cross-ring collective: {col}")
+    fr = on_path(
+        "failure-injection roll, 4 HGX nodes",
+        lambda: bench_mod.failure_injection_roll(pool_members,
+                                                 threading.Lock()),
+        fused_kernels + collective_kernels,
+    )
+    pins = bench_mod.failure_roll_pins(fr)
+    kill = fr["controller_kill"]
+    print(f"[failure-roll] complete={fr['complete']} in {fr['wall_s']:.3f} "
+          f"s; {fr['victim']} failed {fr['failed_within_s']} s after its "
+          f"validation entry (timeout {fr['validation_timeout_s']} s), gate "
+          f"{fr['gate_rejections']}, {fr['stuck_events_naming_victim']} stuck "
+          f"events naming it ({fr['stuck_event_sample']}); quarantines "
+          f"{fr['quarantines']}, rejoins {fr['rejoins']}; escalations "
+          f"{fr['escalations']}, stuck pod cleared {fr['stuck_pod_cleared']}; "
+          f"engine kill at tick {kill['kill_tick']}, recovered after "
+          f"{kill['recovery_ticks']} tick(s), adopted {kill['adopted']}; "
+          f"{fr['batteries']} agent batteries; on {card}", flush=True)
+    print(f"[failure-roll] timeline {fr['timeline']}", flush=True)
+    print(f"[failure-roll] pins {pins}", flush=True)
+    require(all(pins.values()), f"failure roll pins: {pins}")
+    require(fused.battery_stats()["fallbacks"] == stage_fallbacks,
+            f"fused fallbacks on the DCN and failure rolls: "
+            f"{fused.battery_stats()}")
+    t0 = time.perf_counter()
+    het = bench_mod.heterogeneous_roll()
+    print(f"[heterogeneous] {het['nodes']} GFD-labelled nodes in "
+          f"{het['pools']} pools: converged={het['converged']} in "
+          f"{het['ticks']} ticks, {time.perf_counter() - t0:.3f} s of host "
+          f"time; admitted {het['admission_order']} (first ticks "
+          f"{het['first_admit_ticks']}); the held pool's transitions "
+          f"{het['held_transitions_while_closed']}, cordons "
+          f"{het['held_cordons_while_closed']} while closed", flush=True)
+    require(het["converged"] and het["window_opened"]
+            and het["oldest_first"]
+            and het["held_transitions_while_closed"] == 0
+            and het["held_cordons_while_closed"] == 0,
+            f"heterogeneous stage: {het}")
+    print(f"[stages] phase 15 took {time.perf_counter() - t15:.2f} s",
           flush=True)
 
     print("[launches] main path total: "

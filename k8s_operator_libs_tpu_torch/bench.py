@@ -39,7 +39,32 @@ prober, agents and canary:
   4, dp 3 × tp 2 while a node is out), then declines them all;
 - **federated roll** (:func:`federation_roll`): three member clusters of
   64 GFD-labelled nodes, one partitioned mid-roll for 20 coordinator
-  ticks; host work only.
+  ticks; host work only;
+- **DCN roll** (``roll(..., dcn=True)``, the JAX bench's config 5):
+  the pool as two rings (``pool-0``/``pool-1`` ``ring-a``, ``pool-2``/
+  ``pool-3`` ``ring-b``, by ``nvidia.com/gpu-dcn-group``), two upgrades
+  at a time under a 50 % budget with anti-affinity, the canary as
+  ring-a's data-parallel pair (paused while either node is cordoned);
+  the sampler records the most nodes of one ring out at once;
+- **cross-ring collective** (:func:`dcn_collective_stage`): one worker
+  process a ring (``python -m k8s_operator_libs_tpu_torch.bench
+  --dcn-worker``, :func:`dcn_worker`) joins a 2-rank gloo world and runs
+  its node's agent with the deep probe and the DCN checks over 8
+  members of the card, publishing through ``RestClient`` to a
+  ``KubeApiServer``; each report is read back and gated with
+  ``require_dcn_check`` set.  The two ranks share one card, where NCCL
+  refuses to run, so the world is gloo;
+- **failure-injection roll** (:func:`failure_injection_roll`): one
+  node's agent killed and its report withdrawn (the gate fails it by
+  name within the 30 s timeout, a stuck event names it, it recovers
+  when the agent returns), one node NotReady in flight (quarantined,
+  rejoined), a workload pod stuck behind a finalizer (the eviction
+  ladder clears it) and the engine killed and rebuilt mid-drain;
+- **heterogeneous stage** (:func:`heterogeneous_roll`): three pools of
+  two nodes (H100 PCIe, SXM, NVL by ``nvidia.com/gpu.product``) under a
+  serial budget, the NVL pool behind a closed maintenance window: oldest
+  generation first, nothing of the held pool moves while it is closed;
+  host work only.
 
 Headline: the canary's longest gap between steps during the sequential
 roll, against the 120 s budget; when the roll did not complete, or
@@ -64,12 +89,16 @@ drive it, the bench's line does not carry it yet.
 
 from __future__ import annotations
 
+import json
 import os
 import re
+import socket
+import subprocess
 import sys
 import threading
 import time
 import urllib.request
+from collections import Counter
 from dataclasses import asdict, dataclass
 from pathlib import Path
 from typing import Optional, Sequence
@@ -77,12 +106,18 @@ from typing import Optional, Sequence
 from k8s_operator_libs_tpu_torch.api import (
     DrainSpec,
     ElasticCoordinationSpec,
+    EvictionEscalationSpec,
     FederationCanarySpec,
     FederationClusterSpec,
     FederationSpec,
     IntOrString,
     SliceHealthGateSpec,
+    SliceQuarantineSpec,
     TPUUpgradePolicySpec,
+)
+from k8s_operator_libs_tpu_torch.api.v1alpha1 import (
+    MaintenanceWindowSpec,
+    PoolSpec,
 )
 from k8s_operator_libs_tpu_torch.bench_io import emit
 from k8s_operator_libs_tpu_torch.coordination import (
@@ -112,12 +147,16 @@ from k8s_operator_libs_tpu_torch.federation.coordinator import (
     PHASE_PROMOTED,
 )
 from k8s_operator_libs_tpu_torch.health import NodeReportProber, run_host_probe
-from k8s_operator_libs_tpu_torch.health.agent import HealthAgent
+from k8s_operator_libs_tpu_torch.health.agent import (
+    HealthAgent,
+    csv_env,
+    maybe_initialize_distributed,
+)
 from k8s_operator_libs_tpu_torch.health.fused import battery_stats
 from k8s_operator_libs_tpu_torch.health.report import fused_battery_telemetry
 from k8s_operator_libs_tpu_torch.fleet.profiles import GPU_PRODUCT_LABELS
 from k8s_operator_libs_tpu_torch.health.slice_prober import GPU_COUNT_LABELS
-from k8s_operator_libs_tpu_torch.hostenv import probe_cuda_init
+from k8s_operator_libs_tpu_torch.hostenv import cpu_child_env, probe_cuda_init
 from k8s_operator_libs_tpu_torch.keys import (
     DRIVER_LABELS,
     DRIVER_NAME_ENV,
@@ -128,12 +167,15 @@ from k8s_operator_libs_tpu_torch.k8s import (
     ContainerStatus,
     DaemonSet,
     FakeCluster,
+    KubeApiServer,
+    KubeConfig,
     Node,
     NotFoundError,
     ObjectMeta,
     OwnerReference,
     Pod,
     PodPhase,
+    RestClient,
 )
 from k8s_operator_libs_tpu_torch.k8s.faults import FaultSchedule
 from k8s_operator_libs_tpu_torch.k8s.objects import (
@@ -149,12 +191,20 @@ from k8s_operator_libs_tpu_torch.k8s.retry import (
     ResilientClient,
     RetryPolicy,
 )
-from k8s_operator_libs_tpu_torch.kernels import launch_counts
+from k8s_operator_libs_tpu_torch.kernels import (
+    launch_counts,
+    reset_launch_counts,
+)
 from k8s_operator_libs_tpu_torch.metrics import MetricsServer
 from k8s_operator_libs_tpu_torch.status import gather
 from k8s_operator_libs_tpu_torch.upgrade import (
     ClusterUpgradeStateManager,
+    EventRecorder,
     ProbeResult,
+)
+from k8s_operator_libs_tpu_torch.upgrade.types import (
+    NodeUpgradeState,
+    UpgradeGroup,
 )
 from k8s_operator_libs_tpu_torch.workloads.canary import (
     CanaryConfig,
@@ -164,6 +214,11 @@ from k8s_operator_libs_tpu_torch.workloads.canary import (
 
 DOWNTIME_BUDGET_S = 120.0  # the north star: under 2 min of interruption
 N_NODES = 4
+# The DCN roll's rings (the JAX bench's config 5): pool-0 and pool-1 back
+# one data-parallel job, pool-2 and pool-3 another.  Its canary is
+# ring-a's pair: a step needs both nodes.
+DCN_RINGS = ("ring-a", "ring-a", "ring-b", "ring-b")
+DCN_CANARY_NODES = (0, 1)
 GPUS_PER_NODE = 8
 GPU_PRODUCT = "NVIDIA-H100-80GB-HBM3"
 # Per-roll watchdog.  The gate's timeout sits well below it, so a gate
@@ -248,14 +303,31 @@ class _Fleet:
         """Record a new template revision (the roll's trigger)."""
         self.client.add_daemon_set_revision(ds, hash_suffix, revision)
 
-    def gpu_node(self, name: str, product: str = GPU_PRODUCT) -> Node:
-        """An HGX H100 node as GPU Feature Discovery labels it."""
+    def gpu_node(self, name: str, product: str = GPU_PRODUCT,
+                 labels: Optional[dict] = None) -> Node:
+        """An HGX H100 node as GPU Feature Discovery labels it, with
+        ``labels`` besides (a DCN ring, say)."""
         node = Node(metadata=ObjectMeta(name=name, labels={
             GPU_PRODUCT_LABELS[0]: product,
             GPU_COUNT_LABELS[0]: str(GPUS_PER_NODE),
+            **(labels or {}),
         }))
         self.client.create_node(node)
         return node
+
+    def workload_pod(self, node: Node, name: str) -> Pod:
+        """A running pod of a Job on ``node``, in namespace ``default``."""
+        pod = Pod(
+            metadata=ObjectMeta(
+                name=name, namespace="default",
+                owner_references=[OwnerReference(name="job", uid="job-1",
+                                                 kind="Job")],
+            ),
+            spec=PodSpec(node_name=node.name),
+            status=PodStatus(phase=PodPhase.RUNNING),
+        )
+        self.client.create_pod(pod)
+        return pod
 
     def _pod(self, name: str, node_name: str, hash_suffix: str,
              owners: list) -> Pod:
@@ -317,7 +389,11 @@ class RollHarness:
 
     ``members``: the devices of one node's board, on which every node's
     agent runs its battery; ``device_lock``: taken around each battery
-    (and by the canary around each step)."""
+    (and by the canary around each step).  With ``dcn`` the nodes are
+    two DCN rings (``pool-0``/``pool-1`` ``ring-a``, ``pool-2``/
+    ``pool-3`` ``ring-b``, by ``KEYS.dcn_group_label``) and two nodes may
+    be in flight, anti-affinity keeping them in different rings;
+    ``event_recorder`` receives the engine's events."""
 
     def __init__(
         self,
@@ -325,20 +401,30 @@ class RollHarness:
         pipeline: bool,
         device_lock: threading.Lock,
         sizes: tuple[BatterySize, BatterySize] = (IN_FLIGHT, BACKGROUND),
+        dcn: bool = False,
+        event_recorder: Optional[EventRecorder] = None,
     ) -> None:
         self.lock = device_lock
         self.in_flight_size, self.background_size = sizes
+        self.dcn = dcn
+        self.event_recorder = event_recorder
         self.cluster = FakeCluster(api_latency_s=0.001, cache_lag_s=0.05)
-        fleet = _Fleet(self.cluster)
-        ds = fleet.daemon_set("v1", 1)
-        self.nodes = [fleet.gpu_node(f"pool-{i}") for i in range(N_NODES)]
+        self.fleet = _Fleet(self.cluster)
+        ds = self.fleet.daemon_set("v1", 1)
+        self.nodes = [
+            self.fleet.gpu_node(
+                f"pool-{i}",
+                labels={KEYS.dcn_group_label: DCN_RINGS[i]} if dcn else None,
+            )
+            for i in range(N_NODES)
+        ]
         for node in self.nodes:
-            fleet.driver_pod(node, ds, "v1")
-        fleet.bump_daemon_set_template(ds, "v2", 2)
-        fleet.auto_recreate_driver_pods(ds, "v2")
-        self.mgr = ClusterUpgradeStateManager(
-            self.cluster, keys=KEYS, poll_interval_s=0.02, poll_timeout_s=5.0,
-        )
+            self.fleet.driver_pod(node, ds, "v1")
+        self.fleet.bump_daemon_set_template(ds, "v2", 2)
+        self.fleet.auto_recreate_driver_pods(ds, "v2")
+        # The engine's liveness fence, flipped dark by crash_controller().
+        self._alive = {"up": True}
+        self.mgr = self._new_manager()
         self.prober = NodeReportProber(
             KEYS,
             revision_resolver=(
@@ -348,9 +434,16 @@ class RollHarness:
             generation_floors=True,
         )
         self.mgr.with_validation_enabled(self.prober)
+        self._needs_adoption = False
+        self.controller_kills = 0
+        self.last_adopt_summary: dict = {}
         self.policy = TPUUpgradePolicySpec(
             auto_upgrade=True,
-            max_parallel_upgrades=1,
+            # Two rings of two: two nodes in flight, of different rings;
+            # the budget must allow two too, or the rings would roll one
+            # node at a time and the anti-affinity would go untested.
+            max_parallel_upgrades=2 if dcn else 1,
+            **({"max_unavailable": IntOrString("50%")} if dcn else {}),
             drain_spec=DrainSpec(enable=True, timeout_second=30),
             health_gate=SliceHealthGateSpec(
                 enable=True, timeout_second=VALIDATION_TIMEOUT_S
@@ -364,10 +457,44 @@ class RollHarness:
                         devices=list(members), max_iters=AGENT_MAX_ITERS)
             for node in self.nodes
         ]
+        # Nodes whose agent has been killed: the agent loop skips them.
+        self.dead_hosts: set[str] = set()
         # (node, in flight, seconds) of every battery run.
         self.batteries: list[tuple[str, bool, float]] = []
         self._stop = threading.Event()
         self.max_concurrent_unavailable = 0
+        # Most nodes of one ring out at once (dcn): anti-affinity holds
+        # it at 1.
+        self.max_ring_unavailable = 0
+
+    def _new_manager(self) -> ClusterUpgradeStateManager:
+        mgr = ClusterUpgradeStateManager(
+            self.cluster, keys=KEYS, event_recorder=self.event_recorder,
+            poll_interval_s=0.02, poll_timeout_s=5.0,
+        )
+        mgr.fence = lambda a=self._alive: a["up"]
+        return mgr
+
+    # -- the engine's crash and rebuild --------------------------------------
+
+    def crash_controller(self) -> None:
+        """Kill the engine as a SIGKILL would: fence the old manager dark
+        (its drain and eviction workers abandon their work), join them,
+        then stand up a new manager on the same cluster and prober.
+        :meth:`run` re-adopts the durable annotations on its next pass,
+        so the eviction ladder resumes at its persisted rung.  The roll's
+        quarantine and rejoin totals carry across."""
+        self._alive["up"] = False
+        self.mgr.wait_for_async_work(60.0)
+        old = self.mgr
+        self._alive = {"up": True}
+        self.controller_kills += 1
+        self.mgr = self._new_manager()
+        self.mgr.with_validation_enabled(self.prober)
+        self.mgr.recovery_probe_backoff_s = old.recovery_probe_backoff_s
+        self.mgr.quarantines_total += old.quarantines_total
+        self.mgr.rejoins_total += old.rejoins_total
+        self._needs_adoption = True
 
     # -- the agents --------------------------------------------------------
 
@@ -377,10 +504,22 @@ class RollHarness:
         agent.hbm_mib = size.hbm_mib
         agent.allreduce_elems = size.allreduce_elems
         with self.lock:
+            if agent.node_name in self.dead_hosts:
+                return
             t0 = time.monotonic()
             agent.run_once()
             self.batteries.append(
                 (agent.node_name, in_flight, time.monotonic() - t0)
+            )
+
+    def kill_agent(self, name: str) -> None:
+        """The agent of node ``name`` dies: it runs no battery from now
+        on, and its report is withdrawn.  Under the device lock, so that a
+        battery already under way publishes before the withdrawal."""
+        with self.lock:
+            self.dead_hosts.add(name)
+            self.cluster.patch_node_annotations(
+                name, {KEYS.health_report_annotation: None}
             )
 
     def sweep_agents_once(self) -> None:
@@ -390,18 +529,21 @@ class RollHarness:
     def _agent_loop(self) -> None:
         # A node in flight re-probes every cycle, as its own idle board
         # would; the others refresh in turn with the background battery.
+        # A killed agent runs nothing.
         background = 0
         while not self._stop.is_set():
             states = self.node_states()
             in_flight = [a for a in self.agents
-                         if states.get(a.node_name, "") in ACTIVE_STATES]
+                         if states.get(a.node_name, "") in ACTIVE_STATES
+                         and a.node_name not in self.dead_hosts]
             for agent in in_flight:
                 if self._stop.is_set():
                     return
                 self.run_agent(agent, in_flight=True)
             agent = self.agents[background % len(self.agents)]
             background += 1
-            if agent not in in_flight and not self._stop.is_set():
+            if (agent not in in_flight and not self._stop.is_set()
+                    and agent.node_name not in self.dead_hosts):
                 self.run_agent(agent, in_flight=False)
             time.sleep(0.05)
 
@@ -417,10 +559,17 @@ class RollHarness:
 
     def _sampler_loop(self) -> None:
         while not self._stop.is_set():
-            down = sum(self.node_disrupted(i) for i in range(N_NODES))
+            down = [self.node_disrupted(i) for i in range(N_NODES)]
             self.max_concurrent_unavailable = max(
-                self.max_concurrent_unavailable, down
+                self.max_concurrent_unavailable, sum(down)
             )
+            if self.dcn:
+                per_ring = Counter(
+                    ring for ring, out in zip(DCN_RINGS, down) if out
+                )
+                self.max_ring_unavailable = max(
+                    self.max_ring_unavailable, *per_ring.values(), 0
+                )
             time.sleep(0.02)
 
     def node_states(self) -> dict[str, str]:
@@ -452,8 +601,11 @@ class RollHarness:
 
     # -- the roll ------------------------------------------------------------
 
-    def run(self) -> dict:
-        """One roll, to every node ``upgrade-done`` or ``ROLL_BUDGET_S``."""
+    def run(self, on_tick=None) -> dict:
+        """One roll, to every node ``upgrade-done`` or ``ROLL_BUDGET_S``.
+        ``on_tick(states, t)``, when given, runs after every pass with
+        the nodes' states and the seconds since the roll began (the
+        failure-injection roll injects its faults there)."""
         threads = [
             threading.Thread(target=self._agent_loop, daemon=True),
             threading.Thread(target=self._sampler_loop, daemon=True),
@@ -474,6 +626,12 @@ class RollHarness:
                     # Cache lag on fresh objects: requeue like a reconciler.
                     time.sleep(0.05)
                     continue
+                if self._needs_adoption:
+                    self.last_adopt_summary = self.mgr.adopt(
+                        state, identity=f"bench-{self.controller_kills}",
+                        term=self.controller_kills,
+                    )
+                    self._needs_adoption = False
                 self.mgr.apply_state(state, self.policy)
                 self.mgr.wait_for_async_work(60.0)
                 states = self.node_states()
@@ -485,6 +643,8 @@ class RollHarness:
                         log(f"  t={t_rel:7.2f}s {name}: -> {s or '<none>'}"
                             + (f"  [gate: {gate}]" if gate else ""))
                         last[name] = s
+                if on_tick is not None:
+                    on_tick(states, time.monotonic() - t0)
                 if all(s == "upgrade-done" for s in states.values()):
                     done = True
                     break
@@ -505,6 +665,8 @@ class RollHarness:
             "wall_s": wall_s,
             "ticks": ticks,
             "max_concurrent_unavailable": self.max_concurrent_unavailable,
+            **({"max_ring_unavailable": self.max_ring_unavailable}
+               if self.dcn else {}),
             "node_windows_s": node_windows(transitions),
             "transitions": transitions,
             "batteries": len(self.batteries),
@@ -529,21 +691,26 @@ def node_windows(transitions) -> dict[str, Optional[float]]:
     return out
 
 
-def roll_with_canary(harness: RollHarness, canary: CanaryRunner) -> dict:
-    """Run ``harness``'s roll with ``canary`` training on ``pool-0``,
-    paused while that node is cordoned; its steps take the harness's
-    device lock.  Returns the roll's record with the downtime and the
-    lock's share of it."""
+def roll_with_canary(harness: RollHarness, canary: CanaryRunner,
+                     canary_nodes: tuple[int, ...] = (0,)) -> dict:
+    """Run ``harness``'s roll with ``canary`` training on the nodes
+    ``canary_nodes`` (``pool-0`` alone: a one-node job; a ring's pair: a
+    data-parallel job, whose step needs both), paused while any of them
+    is cordoned; its steps take the harness's device lock.  Returns the
+    roll's record with the downtime and the lock's share of it."""
     canary.reset_timing()
     waits: list[float] = []
     failure: list[str] = []
     stop = threading.Event()
 
+    def disrupted() -> bool:
+        return any(harness.node_disrupted(i) for i in canary_nodes)
+
     def canary_loop() -> None:
         while not stop.is_set():
             # A cordoned node cannot host the job: the step waits, and
             # that wait is the interruption a job sees.
-            if harness.node_disrupted(0):
+            if disrupted():
                 time.sleep(0.01)
                 continue
             t0 = time.monotonic()
@@ -566,13 +733,14 @@ def roll_with_canary(harness: RollHarness, canary: CanaryRunner) -> dict:
         if thread.is_alive():
             raise RuntimeError("the canary thread did not stop")
     end = time.monotonic()
-    still_down = harness.node_disrupted(0)
+    still_down = disrupted()
     downtime, closing = longest_gap(
         canary.step_times, canary.window_start,
         end if (still_down or not result["complete"] or failure) else None,
     )
     window = end - canary.window_start
     result.update(
+        canary_nodes=[harness.nodes[i].name for i in canary_nodes],
         downtime_s=downtime,
         canary_steps=len(canary.step_times),
         canary_perf=canary.perf_summary(),
@@ -598,16 +766,22 @@ def roll(
     pipeline: bool,
     attribution: bool,
     sizes: tuple[BatterySize, BatterySize] = (IN_FLIGHT, BACKGROUND),
+    dcn: bool = False,
 ) -> dict:
     """A fresh pool, every agent's first report, the attribution check
-    when asked, then the roll with the canary."""
-    harness = RollHarness(members, pipeline, device_lock, sizes)
+    when asked, then the roll with the canary.  With ``dcn`` (the JAX
+    bench's DCN roll, bench.py:1293-1309) the pool is two rings, two
+    nodes roll at once, and the canary is ring-a's data-parallel pair
+    (``DCN_CANARY_NODES``)."""
+    harness = RollHarness(members, pipeline, device_lock, sizes, dcn=dcn)
     harness.sweep_agents_once()
     check = harness.attribution_check() if attribution else None
     if check is not None:
         log(f"attribution check: ok={check['ok']} ({check['detail']})")
-    log(("pipelined" if pipeline else "sequential") + " roll:")
-    result = roll_with_canary(harness, canary)
+    log(("dcn" if dcn else "pipelined" if pipeline else "sequential")
+        + " roll:")
+    result = roll_with_canary(harness, canary,
+                              DCN_CANARY_NODES if dcn else (0,))
     result["attribution"] = check
     return result
 
@@ -1094,6 +1268,522 @@ def federation_roll(
     }
 
 
+# The failure-injection roll (the JAX package's bench.py:854-1053).  The
+# gate's timeout is short, so the failed path lands well inside the
+# roll's budget, and the stuck threshold sits under it, so the wait is
+# evented before the engine gives up.
+FAILINJ_VALIDATION_TIMEOUT_S = 30
+FAILINJ_STUCK_THRESHOLD_S = 10
+# Recovery probes are rate-limited after a rejection.
+FAILINJ_RECOVERY_BACKOFF_S = 5.0
+FAILINJ_QUARANTINE_DWELL_S = 1
+FAILINJ_EVICT_TIMEOUT_S = 2
+FAILINJ_DELETE_TIMEOUT_S = 2
+# The engine stamps validation entry in whole seconds and fails the gate
+# on the first pass once a whole second more than its timeout has passed
+# since the stamp; the roll sees the failure at the end of a pass.  So a
+# failure lands up to 1 s of stamp granularity plus about a pass after
+# the timeout (30.26-30.94 s on the card, 30.62 and 31.25 s in the JAX
+# bench's records); one a whole recovery backoff late is not "within" it.
+FAILINJ_FAIL_SLACK_S = 2.0
+STUCK_POD = "bench-stuck-finalizer"
+
+
+def failure_injection_roll(
+    members: Sequence,
+    device_lock: threading.Lock,
+    sizes: tuple[BatterySize, BatterySize] = (IN_FLIGHT, BACKGROUND),
+    validation_timeout_s: int = FAILINJ_VALIDATION_TIMEOUT_S,
+    stuck_threshold_s: int = FAILINJ_STUCK_THRESHOLD_S,
+    recovery_backoff_s: float = FAILINJ_RECOVERY_BACKOFF_S,
+    evict_timeout_s: int = FAILINJ_EVICT_TIMEOUT_S,
+    delete_timeout_s: int = FAILINJ_DELETE_TIMEOUT_S,
+) -> dict:
+    """The failed path end to end, on the four-node pool, one node at a
+    time, each fault on a whole node:
+
+    - ``pool-1``'s agent is killed and its report withdrawn once the node
+      leaves the queue: the gate rejects it by name, a stuck event names
+      it before the engine gives up, and it goes ``upgrade-failed``
+      within the validation timeout of its validation entry; then the
+      agent returns (a fresh report) and the engine's gate-checked
+      recovery brings it to ``upgrade-done``;
+    - ``pool-2`` goes NotReady in flight: it is quarantined, comes back
+      Ready, rejoins after the dwell and completes;
+    - ``pool-3`` carries a workload pod stuck behind a finalizer, which
+      the eviction ladder (evict, delete, force delete) must clear;
+    - the engine is killed and rebuilt while ``pool-3`` is at
+      ``drain-required``: the ticks until the rebuilt engine moves a
+      node, and its ``adopt`` summary, are recorded.
+
+    No canary runs.  Returns the JAX stage's record."""
+    recorder = EventRecorder()
+    harness = RollHarness(members, False, device_lock, sizes,
+                          event_recorder=recorder)
+    policy = harness.policy
+    policy.health_gate = SliceHealthGateSpec(
+        enable=True, timeout_second=validation_timeout_s
+    )
+    policy.stuck_threshold_second = stuck_threshold_s
+    policy.slice_quarantine = SliceQuarantineSpec(
+        enable=True, ready_dwell_second=FAILINJ_QUARANTINE_DWELL_S
+    )
+    policy.drain_spec.eviction_escalation = EvictionEscalationSpec(
+        enable=True, evict_timeout_second=evict_timeout_s,
+        delete_timeout_second=delete_timeout_s, allow_force_delete=True,
+    )
+    harness.mgr.recovery_probe_backoff_s = recovery_backoff_s
+    stuck_pod = harness.fleet.workload_pod(harness.nodes[3], STUCK_POD)
+    harness.cluster.set_pod_finalizers(
+        stuck_pod.namespace, stuck_pod.name, ["bench/stuck"]
+    )
+    harness.sweep_agents_once()
+
+    victim, q_victim, k_node = (harness.nodes[i].name for i in (1, 2, 3))
+    stuck_in_gate = (f"Upgrade stuck: group {victim} has been in "
+                     "'validation-required'")
+    timeline: dict[str, float] = {}
+    rejections: list[str] = []
+    ctrl: dict = {"tick": 0, "kill_tick": None, "kill_states": None}
+
+    def mark(key: str, t: float, msg: str) -> None:
+        timeline[key] = t
+        log(f"  t={t:7.2f}s fail-inject: {msg}")
+
+    def on_tick(states: dict[str, str], t: float) -> None:
+        ctrl["tick"] += 1
+        # The engine is killed while pool-3's eviction ladder climbs.
+        if ctrl["kill_tick"] is None:
+            if states[k_node] == "drain-required":
+                harness.crash_controller()
+                ctrl["kill_tick"] = ctrl["tick"]
+                ctrl["kill_states"] = dict(states)
+                mark("t_controller_killed", t,
+                     f"engine killed mid-drain of {k_node}; rebuilt")
+        elif "t_controller_recovered" not in timeline:
+            if states != ctrl["kill_states"]:
+                ctrl["recovery_ticks"] = ctrl["tick"] - ctrl["kill_tick"]
+                mark("t_controller_recovered", t,
+                     f"rebuilt engine moved after {ctrl['recovery_ticks']} "
+                     "tick(s)")
+        # pool-2 goes NotReady in flight, then comes back.
+        s2 = states[q_victim]
+        if "t_node_down" not in timeline:
+            if s2 in ACTIVE_STATES:
+                harness.cluster.set_node_ready(q_victim, False)
+                mark("t_node_down", t, f"{q_victim} NotReady (state {s2})")
+        elif "t_quarantined" not in timeline:
+            if s2 == "quarantined":
+                harness.cluster.set_node_ready(q_victim, True)
+                mark("t_quarantined", t, f"{q_victim} quarantined; Ready "
+                     "again")
+        elif "t_rejoined" not in timeline:
+            if s2 and s2 != "quarantined":
+                mark("t_rejoined", t, f"{q_victim} rejoined ({s2})")
+        # pool-1's agent dies, the gate fails it, the agent returns.
+        s1 = states[victim]
+        rejection = harness.mgr.validation_manager.last_rejection.get(victim)
+        if rejection and rejection not in rejections:
+            rejections.append(rejection)
+        if "t_stuck_event" not in timeline and any(
+            e.message.startswith(stuck_in_gate) for e in list(recorder.events)
+        ):
+            mark("t_stuck_event", t, f"stuck event names {victim} in the "
+                 "gate")
+        if "t_agent_killed" not in timeline:
+            if s1 in ACTIVE_STATES:
+                harness.kill_agent(victim)
+                mark("t_agent_killed", t, f"agent of {victim} killed "
+                     f"(state {s1})")
+        elif "t_validation_start" not in timeline:
+            if s1 == "validation-required":
+                timeline["t_validation_start"] = t
+        elif "t_failed" not in timeline:
+            if s1 == "upgrade-failed":
+                timeline["t_failed"] = t
+                harness.dead_hosts.discard(victim)
+                harness.run_agent(harness.agents[1], in_flight=True)
+                mark("t_agent_returned", t, f"agent of {victim} returned "
+                     "(fresh report)")
+        elif "t_recovered" not in timeline and s1 == "upgrade-done":
+            mark("t_recovered", t, f"{victim} recovered")
+
+    log("failure-injection roll:")
+    result = harness.run(on_tick=on_tick)
+    stuck_naming_victim = [
+        e.message for e in recorder.events
+        if e.message.startswith(stuck_in_gate)
+    ]
+    failed_within = (
+        timeline["t_failed"] - timeline["t_validation_start"]
+        if "t_failed" in timeline and "t_validation_start" in timeline
+        else None
+    )
+    try:
+        harness.cluster.get_pod(stuck_pod.namespace, stuck_pod.name)
+        stuck_pod_cleared = False
+    except NotFoundError:
+        stuck_pod_cleared = True
+    return {
+        "complete": result["complete"],
+        "wall_s": result["wall_s"],
+        "victim": victim,
+        "gate_rejections": rejections,
+        "gate_named_victim": any(victim in r for r in rejections),
+        "quarantine_victim": q_victim,
+        "quarantines": harness.mgr.quarantines_total,
+        "rejoins": harness.mgr.rejoins_total,
+        "escalations": harness.mgr.escalation_stats.snapshot(),
+        "stuck_pod_cleared": stuck_pod_cleared,
+        "controller_kill": {
+            "kills": harness.controller_kills,
+            "kill_tick": ctrl["kill_tick"],
+            "recovery_ticks": ctrl.get("recovery_ticks"),
+            "adopted": harness.last_adopt_summary,
+        },
+        "validation_timeout_s": validation_timeout_s,
+        "stuck_threshold_s": stuck_threshold_s,
+        "fail_slack_s": FAILINJ_FAIL_SLACK_S,
+        "timeline": timeline,
+        "failed_within_s": failed_within,
+        "recovered": "t_recovered" in timeline,
+        "stuck_events_naming_victim": len(stuck_naming_victim),
+        "stuck_event_sample": (
+            stuck_naming_victim[0][:300] if stuck_naming_victim else None
+        ),
+        "batteries": len(harness.batteries),
+        "transitions": result["transitions"],
+        **({} if result["complete"]
+           else {"final_states": result["final_states"]}),
+    }
+
+
+def failure_roll_pins(r: dict) -> dict[str, bool]:
+    """Each pin of the failure-injection roll, by name: the record holds
+    them all when every value is True."""
+    kill = r["controller_kill"]
+    timeline = r["timeline"]
+    return {
+        "complete": r["complete"],
+        "gate_named_victim": r["gate_named_victim"],
+        # Named in the gate before the engine gave up on it.
+        "stuck_event_named_victim": r["stuck_events_naming_victim"] > 0
+        and "t_stuck_event" in timeline and "t_failed" in timeline
+        and timeline["t_stuck_event"] < timeline["t_failed"],
+        "failed_within_timeout": r["failed_within_s"] is not None
+        and r["failed_within_s"] <= r["validation_timeout_s"]
+        + r["fail_slack_s"],
+        "recovered": r["recovered"],
+        "one_quarantine": r["quarantines"] == 1,
+        "one_rejoin": r["rejoins"] == 1,
+        "stuck_pod_cleared": r["stuck_pod_cleared"],
+        "controller_recovered": kill["kills"] == 1
+        and kill["recovery_ticks"] is not None,
+    }
+
+
+# The cross-ring collective (the JAX package's dcn_collective_stage,
+# bench.py:362-467): one worker process a ring, each one GFD-labelled
+# node's agent, in one gloo world.
+DCN_WORKER_ARG = "--dcn-worker"
+DCN_WORKER_TIMEOUT_S = 240.0
+# The workers' battery (the agent's own sizes, small): the deep probe
+# adds the ring attention over the members, its seq at the probe's
+# default.
+DCN_WORKER_SIZE = BatterySize(256, 64, 1 << 12)
+# Env of a worker, besides the agent's own (NODE_NAME, DRIVER_REVISION,
+# HEALTH_DEEP_PROBE, HEALTH_DCN_GROUP(S)) and torchrun's (MASTER_ADDR,
+# MASTER_PORT, RANK, WORLD_SIZE).
+APISERVER_ENV = "BENCH_APISERVER_HOST"
+DCN_DEVICE_ENV = "BENCH_DCN_DEVICE"
+DCN_SIZE_ENV = "BENCH_DCN_SIZE"
+DCN_BACKEND_REASON = (
+    "gloo: the two ranks share one card, and NCCL refuses two ranks on "
+    "one GPU; on a fleet each ring's node has its own"
+)
+
+
+def dcn_worker() -> int:
+    """One ring's node: join the world (gloo) from torchrun's env, run
+    the node's ``HealthAgent`` (deep probe, the DCN checks) over
+    ``GPUS_PER_NODE`` members of ``$BENCH_DCN_DEVICE``, publish the report
+    through the API server at ``$BENCH_APISERVER_HOST``, and print one
+    JSON line: the report's verdicts, the world's size and this process's
+    kernel launches.  Without a card when asked for one it fails; it
+    never goes on on the CPU."""
+    import torch
+    import torch.distributed as dist
+
+    device = os.environ.get(DCN_DEVICE_ENV, "cuda")
+    if device == "cuda" and not torch.cuda.is_available():
+        log("dcn worker: no CUDA device")
+        return 3
+    matmul_n, hbm_mib, allreduce_elems = (
+        int(x) for x in os.environ[DCN_SIZE_ENV].split(",")
+    )
+    maybe_initialize_distributed(backend="gloo")
+    agent = HealthAgent(
+        RestClient(KubeConfig(host=os.environ[APISERVER_ENV]),
+                   timeout_s=10.0),
+        os.environ["NODE_NAME"], KEYS,
+        driver_revision=os.environ.get("DRIVER_REVISION", ""),
+        devices=members_of(GPUS_PER_NODE, device),
+        matmul_n=matmul_n, hbm_mib=hbm_mib, allreduce_elems=allreduce_elems,
+        deep=os.environ.get("HEALTH_DEEP_PROBE", "") == "1",
+        dcn_group=os.environ.get("HEALTH_DCN_GROUP", ""),
+        dcn_expected_groups=csv_env("HEALTH_DCN_GROUPS"),
+        max_iters=AGENT_MAX_ITERS,
+    )
+    reset_launch_counts()
+    report = agent.run_once()
+    launches = launch_counts()
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    print(json.dumps({
+        "node": agent.node_name,
+        "world_size": world,
+        "visible_devices": report.visible_devices,
+        "healthy": report.healthy,
+        "checks": {c.name: c.ok for c in report.checks},
+        "failed": [f"{c.name}: {c.detail}" for c in report.checks
+                   if not c.ok],
+        "launches": launches,
+    }), flush=True)
+    return 0
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dcn_collective_stage(
+    device: str = "cuda",
+    size: BatterySize = DCN_WORKER_SIZE,
+    timeout_s: float = DCN_WORKER_TIMEOUT_S,
+    worker_cmd: Optional[Sequence[str]] = None,
+) -> dict:
+    """The cross-ring collective, for real: a ``FakeCluster`` holding one
+    GFD-labelled node a ring (``ring-a``, ``ring-b``), served by a
+    ``KubeApiServer``; one worker process a ring (:func:`dcn_worker`, or
+    ``worker_cmd``) joins a 2-rank gloo world on a free loopback port
+    and publishes its node's report.  Then each node's report, read back
+    from the store, goes through a ``NodeReportProber`` with
+    ``require_dcn_check`` set, as the engine sets it from
+    ``health_gate.dcn_check``.  ``device`` "cpu" runs the workers with
+    every card hidden.  A worker that fails, times out or prints no
+    parseable line is recorded, never raised.  ``ok``: both rings'
+    ``dcn_collective`` passed and both gates accepted."""
+    rings = ["ring-a", "ring-b"]
+    t0 = time.monotonic()
+    store = FakeCluster()
+    fleet = _Fleet(store)
+    nodes = [fleet.gpu_node(f"dcn-{ring}",
+                            labels={KEYS.dcn_group_label: ring})
+             for ring in rings]
+    server = KubeApiServer(store)
+    server.start()
+    root = str(Path(__file__).resolve().parents[1])
+    cmd = list(worker_cmd) if worker_cmd is not None else [
+        sys.executable, "-m", "k8s_operator_libs_tpu_torch.bench",
+        DCN_WORKER_ARG,
+    ]
+    port = _free_port()
+    # The workers import the package from this checkout, installed or not.
+    base = (cpu_child_env(prepend_pythonpath=root) if device == "cpu"
+            else {**os.environ, "PYTHONPATH": os.pathsep.join(
+                p for p in (root, os.environ.get("PYTHONPATH")) if p)})
+    verdicts: dict = {}
+    procs = []
+    try:
+        for rank, (ring, node) in enumerate(zip(rings, nodes)):
+            env = dict(base)
+            env.update({
+                "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+                "RANK": str(rank), "WORLD_SIZE": str(len(rings)),
+                APISERVER_ENV: server.host, DCN_DEVICE_ENV: device,
+                DCN_SIZE_ENV: f"{size.matmul_n},{size.hbm_mib},"
+                              f"{size.allreduce_elems}",
+                "NODE_NAME": node.name, "DRIVER_REVISION": "v2",
+                "HEALTH_DEEP_PROBE": "1", "HEALTH_DCN_GROUP": ring,
+                "HEALTH_DCN_GROUPS": ",".join(rings),
+            })
+            procs.append((ring, subprocess.Popen(
+                cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True, cwd=root,
+            )))
+        deadline = time.monotonic() + timeout_s
+        for ring, proc in procs:
+            try:
+                out, err = proc.communicate(
+                    timeout=max(0.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.communicate()
+                verdicts[ring] = {"error": f"worker timed out after "
+                                           f"{timeout_s:g} s"}
+                continue
+            if proc.returncode != 0:
+                verdicts[ring] = {"error": f"worker rc={proc.returncode}: "
+                                           f"{err[-300:]}"}
+                continue
+            try:
+                rep = json.loads(out.strip().splitlines()[-1])
+                verdicts[ring] = {
+                    "dcn_collective": rep["checks"].get("dcn_collective"),
+                    "healthy": rep["healthy"],
+                    "failed": rep["failed"],
+                    "world_size": rep["world_size"],
+                    "launches": rep["launches"],
+                }
+            except (IndexError, ValueError, KeyError, TypeError,
+                    AttributeError) as e:
+                verdicts[ring] = {"error": f"unparseable worker report "
+                                           f"({e!r}): {out[-200:]!r}"}
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        server.stop()
+    prober = NodeReportProber(KEYS)
+    prober.require_dcn_check = True
+    gates = {}
+    for ring, node in zip(rings, nodes):
+        group = UpgradeGroup(id=node.name, members=[
+            NodeUpgradeState(node=store.get_node(node.name, cached=False))
+        ])
+        verdict = prober.probe(group)
+        gates[ring] = {"healthy": verdict.healthy, "detail": verdict.detail}
+    ok = (all(v.get("dcn_collective") is True for v in verdicts.values())
+          and len(verdicts) == len(rings)
+          and all(g["healthy"] for g in gates.values()))
+    return {
+        "ok": ok,
+        "device": device,
+        "backend": DCN_BACKEND_REASON,
+        "size": asdict(size),
+        "rings": verdicts,
+        "gates": gates,
+        "wall_s": time.monotonic() - t0,
+    }
+
+
+# The heterogeneous stage (the JAX package's tools/bench_guard.py:909-
+# 1057): three pools of two GFD-labelled nodes, one a generation, in the
+# profiles' order PCIe, SXM, NVL, named in its reverse so that admission
+# by generation and by name differ.  The NVL pool waits behind a
+# maintenance window closed until the other two are done.
+HET_POOLS = (
+    ("h100-pcie", "NVIDIA-H100-PCIe", ("pool-4", "pool-5")),
+    ("h100-sxm", "NVIDIA-H100-80GB-HBM3", ("pool-2", "pool-3")),
+    ("h100-nvl", "NVIDIA-H100-NVL", ("pool-0", "pool-1")),
+)
+HET_HELD = "h100-nvl"
+HET_MAX_TICKS = 400
+
+
+def heterogeneous_roll() -> dict:
+    """One policy rolls the three :data:`HET_POOLS` under a serial budget
+    (one upgrade, one unit, unit ``slice``), each pool selected by its
+    ``nvidia.com/gpu.product``.  The pins: admission is oldest generation
+    first (PCIe, then SXM); the held pool makes no state transition and
+    holds no cordon while its window is closed; once it opens the fleet
+    converges.  Host work only; returns the JAX stage's record."""
+    cluster = FakeCluster()
+    fleet = _Fleet(cluster)
+    ds = fleet.daemon_set("v1", 1)
+    pools = {gen: [fleet.gpu_node(name, product) for name in names]
+             for gen, product, names in HET_POOLS}
+    for nodes in pools.values():
+        for node in nodes:
+            fleet.driver_pod(node, ds, "v1")
+    fleet.bump_daemon_set_template(ds, "v2", 2)
+    fleet.auto_recreate_driver_pods(ds, "v2")
+    # A one-minute window half an hour away is closed now.
+    closed_cron = f"{(time.gmtime().tm_min + 30) % 60} * * * *"
+    policy = TPUUpgradePolicySpec(
+        auto_upgrade=True,
+        max_parallel_upgrades=1,
+        max_unavailable=IntOrString(1),
+        unavailability_unit="slice",
+        pools=[
+            PoolSpec(
+                name=gen,
+                node_selector={GPU_PRODUCT_LABELS[0]: product},
+                maintenance_window=(MaintenanceWindowSpec(cron=closed_cron)
+                                    if gen == HET_HELD else None),
+            )
+            for gen, product, _ in HET_POOLS
+        ],
+    )
+    policy.validate()
+    mgr = ClusterUpgradeStateManager(
+        cluster, keys=KEYS, poll_interval_s=0.005, poll_timeout_s=2.0
+    )
+    held = {n.name for n in pools[HET_HELD]}
+    held_transitions = 0
+    patch = cluster.patch_node_labels
+
+    def counting_patch(name, labels):
+        nonlocal held_transitions
+        if KEYS.state_label in labels and name in held:
+            held_transitions += 1
+        return patch(name, labels)
+
+    cluster.patch_node_labels = counting_patch
+
+    def pool_states(gen: str) -> set[str]:
+        return {cluster.get_node(n.name, cached=False).labels.get(
+            KEYS.state_label, "") for n in pools[gen]}
+
+    settled = {"", "upgrade-required", "upgrade-done"}
+    first_admit: dict[str, int] = {}
+    transitions_while_closed = held_cordons_while_closed = 0
+    window_opened = converged = False
+    t0 = time.monotonic()
+    for tick in range(HET_MAX_TICKS):
+        mgr.apply_state(mgr.build_state(NAMESPACE, DRIVER_LABELS, policy),
+                        policy)
+        mgr.wait_for_async_work(30.0)
+        states = {gen: pool_states(gen) for gen in pools}
+        for gen, st in states.items():
+            if st - settled and gen not in first_admit:
+                first_admit[gen] = tick
+        if not window_opened:
+            transitions_while_closed = held_transitions
+            held_cordons_while_closed += sum(
+                cluster.get_node(name, cached=False).spec.unschedulable
+                for name in held
+            )
+            if all(states[gen] == {"upgrade-done"}
+                   for gen in pools if gen != HET_HELD):
+                next(p for p in policy.pools
+                     if p.name == HET_HELD).maintenance_window = (
+                    MaintenanceWindowSpec(cron="* * * * *"))
+                window_opened = True
+        if all(st == {"upgrade-done"} for st in states.values()):
+            converged = True
+            break
+    order = sorted(first_admit, key=first_admit.get)
+    return {
+        "stage": "heterogeneous",
+        "pools": len(pools),
+        "nodes": sum(len(ns) for ns in pools.values()),
+        "converged": converged,
+        "window_opened": window_opened,
+        "ticks": tick + 1,
+        "wall_s": time.monotonic() - t0,
+        "first_admit_ticks": first_admit,
+        "admission_order": order,
+        "oldest_first": order[:2] == ["h100-pcie", "h100-sxm"],
+        "held_transitions_while_closed": transitions_while_closed,
+        "held_cordons_while_closed": held_cordons_while_closed,
+    }
+
+
 def battery_stage(members: Sequence) -> dict:
     """The production-size battery over ``members``: unfused cold and
     warm, then fused cold and warm."""
@@ -1119,6 +1809,73 @@ def battery_stage(members: Sequence) -> dict:
 
 def _num(x, nd: int):
     return round(float(x), nd) if isinstance(x, (int, float)) else None
+
+
+def summarize(records: dict) -> dict:
+    """The line's ``details``: the headline's context and each stage's
+    pins, from the records :func:`main` gathers (``card``, ``battery``,
+    ``sequential``, ``pipelined``, ``elastic``, ``federation``, ``dcn``,
+    ``dcn_collective``, ``failure_injection``, ``heterogeneous``,
+    ``preflight``)."""
+    card, battery = records["card"], records["battery"]
+    seq, pipe = records["sequential"], records["pipelined"]
+    elastic, federation = records["elastic"], records["federation"]
+    dcn, failinj = records["dcn"], records["failure_injection"]
+    het = records["heterogeneous"]
+    metrics = battery["metrics"]
+    summary = {
+        "complete": seq["complete"],
+        "backend": "cuda",
+        "device": card["kind"],
+        "n_devices": card["count"],
+        "downtime_budget_s": DOWNTIME_BUDGET_S,
+        "upgrade_wall_s": _num(seq["wall_s"], 3),
+        "node_windows_s": {k: _num(v, 3)
+                           for k, v in seq["node_windows_s"].items()},
+        "lock_wait_in_longest_gap_s": _num(
+            seq["lock"]["wait_in_longest_gap_s"], 3),
+        "lock_wait_share": _num(seq["lock"]["wait_share"], 4),
+        "attribution_ok": seq["attribution"]["ok"],
+        "attribution_victim": seq["attribution"]["victim"],
+        "max_concurrent_unavailable": seq["max_concurrent_unavailable"],
+        "pipelined_complete": pipe["complete"],
+        "pipelined_wall_s": _num(pipe["wall_s"], 3),
+        "pipelined_downtime_s": _num(pipe["downtime_s"], 3),
+        "elastic_converged": elastic["accept"]["converged"],
+        "elastic_max_gap_s": _num(elastic["accept"]["max_gap_s"], 3),
+        "elastic_downtime_s": _num(elastic["accept"]["downtime_s"], 3),
+        "elastic_decline_converged": elastic["decline"]["converged"],
+        "federation_converged": federation["converged"],
+        "dcn_complete": dcn["complete"],
+        "dcn_ring_high_water": dcn["max_ring_unavailable"],
+        "dcn_downtime_s": _num(dcn["downtime_s"], 3),
+        "dcn_collective_ok": records["dcn_collective"]["ok"],
+        "failinj_failed_within_s": _num(failinj["failed_within_s"], 3),
+        "failinj_recovered": failinj["recovered"],
+        "failinj_quarantines": failinj["quarantines"],
+        "failinj_rejoins": failinj["rejoins"],
+        "failinj_stuck_pod_cleared": failinj["stuck_pod_cleared"],
+        "failinj_recovery_ticks":
+            failinj["controller_kill"]["recovery_ticks"],
+        "heterogeneous_converged": het["converged"],
+        "heterogeneous_oldest_first": het["oldest_first"],
+        "heterogeneous_held_transitions":
+            het["held_transitions_while_closed"],
+        "canary_steps": seq["canary_steps"],
+        "canary_median_step_s": _num(
+            seq["canary_perf"].get("median_step_s"), 4),
+        "mxu_tflops": _num(metrics.get("mxu_matmul", {}).get("tflops"), 1),
+        "hbm_gbps": _num(metrics.get("hbm_bandwidth", {}).get("gbps"), 1),
+        "ici_busbw_gbps": _num(
+            metrics.get("ici_allreduce", {}).get("busbw_gbps"), 1),
+        "fused_warm_cache_hit":
+            battery["fused_telemetry"].get("battery_cache_hit") == 1.0,
+        "battery_failures": len(battery["failures"]),
+        "preflight_s": _num(records["preflight"]["seconds"], 3),
+    }
+    if seq["canary_error"]:
+        summary["error"] = f"canary: {seq['canary_error']}"
+    return summary
 
 
 def main() -> int:
@@ -1156,67 +1913,44 @@ def main() -> int:
     federation = federation_roll()
     log(f"federated roll: converged={federation['converged']} "
         f"{federation['ticks']} ticks")
+    dcn = roll(members, canary, lock, pipeline=False, attribution=False,
+               dcn=True)
+    log(f"dcn roll: complete={dcn['complete']} wall {dcn['wall_s']:.3f} s "
+        f"ring high-water {dcn['max_ring_unavailable']} pair downtime "
+        f"{dcn['downtime_s']:.3f} s")
+    collective = dcn_collective_stage()
+    log(f"dcn collective: ok={collective['ok']} rings {collective['rings']} "
+        f"gates {collective['gates']}")
+    failinj = failure_injection_roll(members, lock)
+    log(f"failure injection: pins {failure_roll_pins(failinj)} failed "
+        f"within {failinj['failed_within_s']} s")
+    het = heterogeneous_roll()
+    log(f"heterogeneous roll: converged={het['converged']} order "
+        f"{het['admission_order']}")
 
-    complete = seq["complete"]
-    attribution = seq["attribution"]
     card = {"kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}
-    details = {
-        "complete": complete,
+    records = {
+        "card": card, "battery": battery, "sequential": seq,
+        "pipelined": pipe, "elastic": elastic, "federation": federation,
+        "dcn": dcn, "dcn_collective": collective,
+        "failure_injection": failinj, "heterogeneous": het,
         "preflight": preflight,
+    }
+    details = {
+        **{k: v for k, v in records.items() if k != "card"},
+        "complete": seq["complete"],
         "device": card,
         "members": [str(m) for m in members],
-        "battery": battery,
         "canary": {"config": asdict(BENCH_CANARY),
                    "params": canary.param_count()},
-        "sequential": seq,
-        "pipelined": pipe,
-        "elastic": elastic,
-        "federation": federation,
         "agent_sizes": {"in_flight": asdict(IN_FLIGHT),
                         "background": asdict(BACKGROUND),
                         "max_iters": AGENT_MAX_ITERS},
         "downtime_budget_s": DOWNTIME_BUDGET_S,
         "validation_timeout_s": VALIDATION_TIMEOUT_S,
     }
-    metrics = battery["metrics"]
-    summary = {
-        "complete": complete,
-        "backend": "cuda",
-        "device": card["kind"],
-        "n_devices": card["count"],
-        "downtime_budget_s": DOWNTIME_BUDGET_S,
-        "upgrade_wall_s": _num(seq["wall_s"], 3),
-        "node_windows_s": {k: _num(v, 3)
-                           for k, v in seq["node_windows_s"].items()},
-        "lock_wait_in_longest_gap_s": _num(
-            seq["lock"]["wait_in_longest_gap_s"], 3),
-        "lock_wait_share": _num(seq["lock"]["wait_share"], 4),
-        "attribution_ok": attribution["ok"],
-        "attribution_victim": attribution["victim"],
-        "max_concurrent_unavailable": seq["max_concurrent_unavailable"],
-        "pipelined_complete": pipe["complete"],
-        "pipelined_wall_s": _num(pipe["wall_s"], 3),
-        "pipelined_downtime_s": _num(pipe["downtime_s"], 3),
-        "elastic_converged": elastic["accept"]["converged"],
-        "elastic_max_gap_s": _num(elastic["accept"]["max_gap_s"], 3),
-        "elastic_downtime_s": _num(elastic["accept"]["downtime_s"], 3),
-        "elastic_decline_converged": elastic["decline"]["converged"],
-        "federation_converged": federation["converged"],
-        "canary_steps": seq["canary_steps"],
-        "canary_median_step_s": _num(
-            seq["canary_perf"].get("median_step_s"), 4),
-        "mxu_tflops": _num(metrics.get("mxu_matmul", {}).get("tflops"), 1),
-        "hbm_gbps": _num(metrics.get("hbm_bandwidth", {}).get("gbps"), 1),
-        "ici_busbw_gbps": _num(
-            metrics.get("ici_allreduce", {}).get("busbw_gbps"), 1),
-        "fused_warm_cache_hit":
-            battery["fused_telemetry"].get("battery_cache_hit") == 1.0,
-        "battery_failures": len(battery["failures"]),
-        "preflight_s": _num(preflight["seconds"], 3),
-    }
-    if seq["canary_error"]:
-        summary["error"] = f"canary: {seq['canary_error']}"
+    complete = seq["complete"]
     downtime = seq["downtime_s"]
     emit(
         METRIC_NAME,
@@ -1224,14 +1958,16 @@ def main() -> int:
         "s",
         round(DOWNTIME_BUDGET_S / max(downtime, 1e-9), 2) if complete
         else 0.0,
-        summary,
+        summarize(records),
         full_details=details,
         details_path=str(DETAILS_PATH),
     )
-    return 0 if complete and attribution["ok"] else 1
+    return 0 if complete and seq["attribution"]["ok"] else 1
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == [DCN_WORKER_ARG]:
+        sys.exit(dcn_worker())
     try:
         code = main()
     except Exception as e:  # noqa: BLE001 — the line must still land

@@ -16,6 +16,15 @@ the validation gate all resolve it here, so they cannot disagree.  The
 engine builds ``slice_info`` only from TPU labels, so a GPU node (which
 GPU Feature Discovery labels with its product) reaches them as a group
 without a slice.
+
+:func:`node_dcn_group` and :func:`group_dcn_group` are, in the same way,
+the one place that reads a node's or a group's DCN ring (the data-
+parallel job whose members must never be down together): the slice's
+``dcn_group`` when the group has a slice, else its first node's
+``keys.dcn_group_label``, then the JobSet fallback.  The engine's
+anti-affinity, the sharded budget ledger, the planner, the status rows
+and the gate's ``require_dcn_check`` resolve it here, so a GPU node's
+ring counts wherever a TPU slice's does.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ from typing import Optional, Sequence
 from k8s_operator_libs_tpu_torch.hw import ChipSpec, chip_spec
 from k8s_operator_libs_tpu_torch.topology.slices import (
     GKE_TPU_ACCELERATOR_LABEL,
+    _jobset_dcn_group,
 )
 
 # Node labels naming a GPU host's accelerator, GPU Feature Discovery's
@@ -163,3 +173,20 @@ def group_accelerator(group) -> str:
         return group.slice_info.accelerator or ""
     nodes = getattr(group, "nodes", None) or []
     return node_accelerator(nodes[0]) if nodes else ""
+
+
+def node_dcn_group(node, keys) -> Optional[str]:
+    """The DCN ring a node's labels name: ``keys.dcn_group_label``, else
+    its JobSet (namespace/name when the namespace label is set), or
+    None."""
+    labels = getattr(node, "labels", None) or {}
+    return labels.get(keys.dcn_group_label) or _jobset_dcn_group(labels)
+
+
+def group_dcn_group(group, keys) -> Optional[str]:
+    """An upgrade group's DCN ring: its slice's, else its first node's
+    (:func:`node_dcn_group`), or None."""
+    if group.slice_info is not None:
+        return group.slice_info.dcn_group
+    nodes = getattr(group, "nodes", None) or []
+    return node_dcn_group(nodes[0], keys) if nodes else None

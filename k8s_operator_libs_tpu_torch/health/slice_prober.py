@@ -21,7 +21,10 @@ accelerator and the device count come from each node's own labels
 (``fleet.profiles.node_accelerator``, the engine's own reader, and
 :data:`GPU_COUNT_LABELS`), and the count
 check and the generation's floors apply per node; a node without them
-is unknown and nothing is enforced, as for an unknown accelerator.
+is unknown and nothing is enforced, as for an unknown accelerator.  Its
+DCN ring comes from ``fleet.profiles.group_dcn_group`` (the node's
+``keys.dcn_group_label``, then its JobSet), so ``require_dcn_check``
+holds a GPU node of a ring to a report with a DCN check.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from k8s_operator_libs_tpu_torch.consts import get_logger
 from k8s_operator_libs_tpu_torch.fleet.profiles import (
     _node_label,
     generation_profile,
+    group_dcn_group,
     node_accelerator,
 )
 from k8s_operator_libs_tpu_torch.health.probes import run_host_probe
@@ -229,8 +233,7 @@ class NodeReportProber:
             )
         if (
             self.require_dcn_check
-            and group.slice_info is not None
-            and group.slice_info.dcn_group is not None
+            and group_dcn_group(group, self.keys) is not None
             and not any(
                 c.name in ("dcn_collective", "dcn_reachability")
                 for c in report.checks

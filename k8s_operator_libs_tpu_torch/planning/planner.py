@@ -31,7 +31,10 @@ from typing import Optional
 
 from k8s_operator_libs_tpu_torch.artifacts.dag import artifact_dag_of
 from k8s_operator_libs_tpu_torch.consts import get_logger
-from k8s_operator_libs_tpu_torch.fleet.profiles import group_accelerator
+from k8s_operator_libs_tpu_torch.fleet.profiles import (
+    group_accelerator,
+    group_dcn_group,
+)
 from k8s_operator_libs_tpu_torch.fleet.scheduler import (
     group_sort_key,
     packed_group_sort_key,
@@ -626,11 +629,7 @@ def plan_roll(
             if pool_name is not None:
                 pu, pp = pool_used.get(pool_name, (0, 0))
                 pool_used[pool_name] = (pu + cost, pp + 1)
-            dcn = (
-                group.slice_info.dcn_group
-                if group.slice_info is not None
-                else None
-            )
+            dcn = group_dcn_group(group, manager.keys)
             if dcn:
                 busy_dcn.add(dcn)
         in_flight = []
@@ -647,11 +646,7 @@ def plan_roll(
             if used_budget + cost > fleet_cap:
                 still_pending.append(item)
                 continue
-            dcn = (
-                group.slice_info.dcn_group
-                if group.slice_info is not None
-                else None
-            )
+            dcn = group_dcn_group(group, manager.keys)
             dcn_gate = getattr(policy, "dcn_anti_affinity", False)
             if dcn_gate and dcn and dcn in busy_dcn:
                 still_pending.append(item)

@@ -26,7 +26,10 @@ from k8s_operator_libs_tpu_torch.upgrade.upgrade_state import (
     BuildStateError,
     ClusterUpgradeStateManager,
 )
-from k8s_operator_libs_tpu_torch.fleet.profiles import group_accelerator
+from k8s_operator_libs_tpu_torch.fleet.profiles import (
+    group_accelerator,
+    group_dcn_group,
+)
 from k8s_operator_libs_tpu_torch.keys import (
     CONTROLLER_NAME,
     DEFAULT_DRIVER_NAME,
@@ -721,11 +724,7 @@ def gather(
                 "topology": (
                     group.slice_info.topology if group.slice_info else ""
                 ),
-                "dcn_group": (
-                    group.slice_info.dcn_group
-                    if group.slice_info and group.slice_info.dcn_group
-                    else ""
-                ),
+                "dcn_group": group_dcn_group(group, keys) or "",
                 "members": member_states,
             }
         )

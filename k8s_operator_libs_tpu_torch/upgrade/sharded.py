@@ -46,7 +46,10 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 from k8s_operator_libs_tpu_torch.consts import get_logger
-from k8s_operator_libs_tpu_torch.fleet.profiles import group_accelerator
+from k8s_operator_libs_tpu_torch.fleet.profiles import (
+    group_accelerator,
+    group_dcn_group,
+)
 from k8s_operator_libs_tpu_torch.fleet.scheduler import pool_sort_key
 from k8s_operator_libs_tpu_torch.k8s.client import WatchEvent
 from k8s_operator_libs_tpu_torch.topology.slices import slice_info_for_node
@@ -691,12 +694,9 @@ class BudgetLedger:
                 charges[group.id] = 1 if unit == "slice" else group.size()
                 if group.id in pool_of:
                     pool_of_charge[group.id] = pool_of[group.id]
-                if (
-                    dcn_anti_affinity
-                    and group.slice_info is not None
-                    and group.slice_info.dcn_group is not None
-                ):
-                    dcn_of[group.id] = group.slice_info.dcn_group
+                ring = group_dcn_group(group, manager.keys)
+                if dcn_anti_affinity and ring is not None:
+                    dcn_of[group.id] = ring
         external = 0
         for group in state.all_groups():
             eff = group.effective_state(manager.keys.state_label)

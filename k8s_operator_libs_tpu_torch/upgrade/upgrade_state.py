@@ -32,7 +32,11 @@ from k8s_operator_libs_tpu_torch.api.v1alpha1 import (
 )
 from k8s_operator_libs_tpu_torch.artifacts.dag import artifact_dag_of
 from k8s_operator_libs_tpu_torch.consts import get_logger
-from k8s_operator_libs_tpu_torch.fleet.profiles import generation_of, group_accelerator
+from k8s_operator_libs_tpu_torch.fleet.profiles import (
+    generation_of,
+    group_accelerator,
+    group_dcn_group,
+)
 from k8s_operator_libs_tpu_torch.fleet.scheduler import (
     group_sort_key,
     packed_group_sort_key,
@@ -1324,11 +1328,12 @@ class ClusterUpgradeStateManager:
         data-parallel JobSet (BASELINE config 5)."""
         in_flight: set[str] = set()
         for group in state.all_groups():
-            if group.slice_info is None or group.slice_info.dcn_group is None:
+            ring = group_dcn_group(group, self.keys)
+            if ring is None:
                 continue
             eff = group.effective_state(self.keys.state_label)
             if eff in IN_PROGRESS_STATES or self._group_unavailable(group):
-                in_flight.add(group.slice_info.dcn_group)
+                in_flight.add(ring)
         return in_flight
 
     def process_upgrade_required_groups(
@@ -1423,17 +1428,13 @@ class ClusterUpgradeStateManager:
                     group.slice_info.expected_hosts,
                 )
                 continue
-            if (
-                dcn_anti_affinity
-                and group.slice_info is not None
-                and group.slice_info.dcn_group is not None
-                and group.slice_info.dcn_group in busy_dcn
-            ):
+            ring = group_dcn_group(group, self.keys)
+            if dcn_anti_affinity and ring is not None and ring in busy_dcn:
                 logger.info(
                     "slice %s deferred: another slice of DCN group %s is in "
                     "flight (dcn_anti_affinity)",
                     group.id,
-                    group.slice_info.dcn_group,
+                    ring,
                 )
                 continue
             cost = 1 if unit == "slice" else group.size()
@@ -1448,13 +1449,7 @@ class ClusterUpgradeStateManager:
                 # already-cordoned bypass becomes a forced claim: the
                 # group is genuinely unavailable either way, and the
                 # charge must stay visible to every other shard.
-                dcn = (
-                    group.slice_info.dcn_group
-                    if dcn_anti_affinity
-                    and group.slice_info is not None
-                    and group.slice_info.dcn_group is not None
-                    else None
-                )
+                dcn = ring if dcn_anti_affinity else None
                 if not ledger.try_claim(
                     group.id, cost, dcn_group=dcn, force=already_cordoned
                 ):
@@ -1519,11 +1514,8 @@ class ClusterUpgradeStateManager:
             stats["last_admitted_units"] += cost
             if packed:
                 stats["packed_admitted"] = stats.get("packed_admitted", 0) + 1
-            if (
-                group.slice_info is not None
-                and group.slice_info.dcn_group is not None
-            ):
-                busy_dcn.add(group.slice_info.dcn_group)
+            if ring is not None:
+                busy_dcn.add(ring)
             if target is UpgradeState.NEGOTIATE_REQUIRED:
                 self._move_group_bucket(state, group, target)
                 logger.info("group %s negotiating elastic resize", group.id)
@@ -3028,10 +3020,9 @@ class ClusterUpgradeStateManager:
             # DCN gating mirrors the admission path: with the knob off,
             # a same-DCN slice in flight must not block the rejoin.
             dcn = (
-                group.slice_info.dcn_group
+                group_dcn_group(group, self.keys)
                 if isinstance(policy, TPUUpgradePolicySpec)
                 and policy.dcn_anti_affinity
-                and group.slice_info is not None
                 else None
             )
             return self.budget_ledger.try_claim(

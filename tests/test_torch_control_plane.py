@@ -82,7 +82,9 @@ if __name__ == "__main__":
 # made, nothing else.  The engine's modules read a group's or a node's
 # accelerator through ``fleet.profiles`` (``group_accelerator``,
 # ``node_accelerator``), where a GPU node without a slice has its GPU
-# Feature Discovery label; the reference reads the slice's alone.
+# Feature Discovery label, and a group's DCN ring the same way
+# (``group_dcn_group``: a GPU node's ring label or JobSet); the
+# reference reads the slice's alone.
 OWN_COPIES: dict[str, list[tuple[str, str]]] = {
     "fleet/scheduler.py": [
         (
@@ -112,7 +114,11 @@ OWN_COPIES: dict[str, list[tuple[str, str]]] = {
     "upgrade/upgrade_state.py": [
         (
             f"from {_P}.fleet.profiles import generation_of\n",
-            f"from {_P}.fleet.profiles import generation_of, group_accelerator\n",
+            f"from {_P}.fleet.profiles import (\n"
+            "    generation_of,\n"
+            "    group_accelerator,\n"
+            "    group_dcn_group,\n"
+            ")\n",
         ),
         (
             "                    gen = (\n"
@@ -125,12 +131,102 @@ OWN_COPIES: dict[str, list[tuple[str, str]]] = {
             '                        or "unknown"\n'
             "                    )\n",
         ),
+        # A group's DCN ring: the in-flight rings, the
+        # admission's deferral, its ledger claim and busy set, and the
+        # rejoin's claim.
+        (
+            "        for group in state.all_groups():\n"
+            "            if group.slice_info is None or "
+            "group.slice_info.dcn_group is None:\n"
+            "                continue\n"
+            "            eff = group.effective_state(self.keys.state_label)\n"
+            "            if eff in IN_PROGRESS_STATES or "
+            "self._group_unavailable(group):\n"
+            "                in_flight.add(group.slice_info.dcn_group)\n",
+            "        for group in state.all_groups():\n"
+            "            ring = group_dcn_group(group, self.keys)\n"
+            "            if ring is None:\n"
+            "                continue\n"
+            "            eff = group.effective_state(self.keys.state_label)\n"
+            "            if eff in IN_PROGRESS_STATES or "
+            "self._group_unavailable(group):\n"
+            "                in_flight.add(ring)\n",
+        ),
+        (
+            "            if (\n"
+            "                dcn_anti_affinity\n"
+            "                and group.slice_info is not None\n"
+            "                and group.slice_info.dcn_group is not None\n"
+            "                and group.slice_info.dcn_group in busy_dcn\n"
+            "            ):\n"
+            "                logger.info(\n"
+            '                    "slice %s deferred: another slice of DCN '
+            'group %s is in "\n'
+            '                    "flight (dcn_anti_affinity)",\n'
+            "                    group.id,\n"
+            "                    group.slice_info.dcn_group,\n"
+            "                )\n",
+            "            ring = group_dcn_group(group, self.keys)\n"
+            "            if dcn_anti_affinity and ring is not None and ring "
+            "in busy_dcn:\n"
+            "                logger.info(\n"
+            '                    "slice %s deferred: another slice of DCN '
+            'group %s is in "\n'
+            '                    "flight (dcn_anti_affinity)",\n'
+            "                    group.id,\n"
+            "                    ring,\n"
+            "                )\n",
+        ),
+        (
+            "                dcn = (\n"
+            "                    group.slice_info.dcn_group\n"
+            "                    if dcn_anti_affinity\n"
+            "                    and group.slice_info is not None\n"
+            "                    and group.slice_info.dcn_group is not None\n"
+            "                    else None\n"
+            "                )\n",
+            "                dcn = ring if dcn_anti_affinity else None\n",
+        ),
+        (
+            "            if (\n"
+            "                group.slice_info is not None\n"
+            "                and group.slice_info.dcn_group is not None\n"
+            "            ):\n"
+            "                busy_dcn.add(group.slice_info.dcn_group)\n",
+            "            if ring is not None:\n"
+            "                busy_dcn.add(ring)\n",
+        ),
+        (
+            "                group.slice_info.dcn_group\n"
+            "                if isinstance(policy, TPUUpgradePolicySpec)\n"
+            "                and policy.dcn_anti_affinity\n"
+            "                and group.slice_info is not None\n"
+            "                else None\n",
+            "                group_dcn_group(group, self.keys)\n"
+            "                if isinstance(policy, TPUUpgradePolicySpec)\n"
+            "                and policy.dcn_anti_affinity\n"
+            "                else None\n",
+        ),
     ],
     "upgrade/sharded.py": [
         (
             f"from {_P}.fleet.scheduler import pool_sort_key\n",
-            f"from {_P}.fleet.profiles import group_accelerator\n"
+            f"from {_P}.fleet.profiles import (\n"
+            "    group_accelerator,\n"
+            "    group_dcn_group,\n"
+            ")\n"
             f"from {_P}.fleet.scheduler import pool_sort_key\n",
+        ),
+        (
+            "                if (\n"
+            "                    dcn_anti_affinity\n"
+            "                    and group.slice_info is not None\n"
+            "                    and group.slice_info.dcn_group is not None\n"
+            "                ):\n"
+            "                    dcn_of[group.id] = group.slice_info.dcn_group\n",
+            "                ring = group_dcn_group(group, manager.keys)\n"
+            "                if dcn_anti_affinity and ring is not None:\n"
+            "                    dcn_of[group.id] = ring\n",
         ),
         (
             "            accel = (\n"
@@ -144,8 +240,31 @@ OWN_COPIES: dict[str, list[tuple[str, str]]] = {
     "planning/planner.py": [
         (
             f"from {_P}.fleet.scheduler import (\n",
-            f"from {_P}.fleet.profiles import group_accelerator\n"
+            f"from {_P}.fleet.profiles import (\n"
+            "    group_accelerator,\n"
+            "    group_dcn_group,\n"
+            ")\n"
             f"from {_P}.fleet.scheduler import (\n",
+        ),
+        (
+            "            dcn = (\n"
+            "                group.slice_info.dcn_group\n"
+            "                if group.slice_info is not None\n"
+            "                else None\n"
+            "            )\n"
+            "            if dcn:\n",
+            "            dcn = group_dcn_group(group, manager.keys)\n"
+            "            if dcn:\n",
+        ),
+        (
+            "            dcn = (\n"
+            "                group.slice_info.dcn_group\n"
+            "                if group.slice_info is not None\n"
+            "                else None\n"
+            "            )\n"
+            "            dcn_gate = ",
+            "            dcn = group_dcn_group(group, manager.keys)\n"
+            "            dcn_gate = ",
         ),
         (
             "            accelerator = (\n"
@@ -246,7 +365,10 @@ OWN_COPIES: dict[str, list[tuple[str, str]]] = {
     "status.py": [
         (
             f"from {_P}.upgrade.util import UpgradeKeys\n",
-            f"from {_P}.fleet.profiles import group_accelerator\n"
+            f"from {_P}.fleet.profiles import (\n"
+            "    group_accelerator,\n"
+            "    group_dcn_group,\n"
+            ")\n"
             f"from {_P}.keys import (\n"
             "    CONTROLLER_NAME,\n"
             "    DEFAULT_DRIVER_NAME,\n"
@@ -268,6 +390,15 @@ OWN_COPIES: dict[str, list[tuple[str, str]]] = {
             '                    group.slice_info.accelerator if group.slice_info else ""\n'
             "                ),\n",
             '                "accelerator": group_accelerator(group),\n',
+        ),
+        (
+            '                "dcn_group": (\n'
+            "                    group.slice_info.dcn_group\n"
+            "                    if group.slice_info and "
+            "group.slice_info.dcn_group\n"
+            '                    else ""\n'
+            "                ),\n",
+            '                "dcn_group": group_dcn_group(group, keys) or "",\n',
         ),
         (
             '        accel = group.slice_info.accelerator if group.slice_info else ""\n'
