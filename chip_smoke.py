@@ -138,7 +138,8 @@ Phases:
    ``bench.federation_roll``): four GFD-labelled nodes, each one slice of
    the bench-width ``ElasticCanaryRunner`` over 8 members of the card,
    roll through the engine's elastic negotiation with the workload's
-   coordinator answering the offers, first accepting (dp 2 x tp 4, dp 3
+   coordinator answering the offers, one canary step a pass (the bench
+   takes three), first accepting (dp 2 x tp 4, dp 3
    x tp 2 while a node is out: 4 accepted, 4 resizes down and 4 up, none
    left excluded), then declining (4 declined, no resize, every step
    at dp 2 x tp 4); each ends
@@ -169,14 +170,27 @@ Phases:
    clears ``pool-3``'s stuck pod and recovers from the engine's kill;
    the heterogeneous stage (``bench.heterogeneous_roll``) admits PCIe
    then SXM, moves nothing of the held NVL pool while its window is
-   closed, and converges.
+   closed, and converges;
+16. the guard's stages (``bench_guard.stages``, the JAX package's
+   ``tools/bench_guard.py`` on the port's engine): the cached reconcile
+   (256 nodes), the sharded reconcile (4096 GFD nodes, 4096 pools), write
+   hygiene, the planner (4096 nodes over H100 PCIe, SXM and NVL and its
+   digital twin), packed admission (the reference's TPU slices), tracing
+   (each timed roll in a child of its own), telemetry (256 nodes over the three H100 generations), the
+   three-artifact stack (driver, NIC driver, device plugin over 256
+   nodes), the fused battery and the async gate over the 8 members at
+   production size (a path: K1, its verifying pass, K2, K4 and K5, no
+   fallback), then the 100,000-node incremental reconcile (100,000
+   pools) in a child of its own.  Each record is printed with its host
+   seconds, and every pin must hold.
 
-Kernel launch counts are zeroed just before each path of phases 4-15
+Kernel launch counts are zeroed just before each path of phases 4-16
 (unfused, fused cold, fused warm, agent, local prober, the collective
 paths, the ring paths, the battery with the deep flag, the canary, the
 sharded and elastic canaries, the unfused agent of the labelled node,
 the network-path checks, the roll, the controller's roll, both elastic
-rolls, the DCN and failure-injection rolls) and read just after it: each
+rolls, the DCN and failure-injection rolls, the guard's battery stage)
+and read just after it: each
 path names the kernels it must launch (K1 and K2 on the battery paths,
 K1's verifying pass as well on the fused ones, K3 on the ring
 paths, K4 and K5 on the all-reduce, sharded, 8-member network, every
@@ -261,6 +275,10 @@ DCN_GROUPS = ("ring-a", "ring-b")
 DCN_CHILD = "--dcn-child"
 DCN_CHILD_TIMEOUT_S = 300
 DCN_WARM_CALLS = 20
+# Phase 14's elastic rolls take one canary step a pass, not the bench's
+# three: phase 16's guard stages add about 400 s of host work, and the
+# steps are the depth an elastic roll can lose without losing a pin.
+ELASTIC_STEPS_PER_PASS = 1
 # Readings of each ICI probe in phase 7 beside its path's one.
 ICI_READINGS = 10
 TURN_ARG = "--turn"
@@ -2343,7 +2361,9 @@ def main() -> int:
             f"elastic roll ({variant}), bench-width canary over "
             f"{len(pool_members)} members in {bench_mod.ELASTIC_N_SLICES} "
             f"slices",
-            lambda: bench_mod.elastic_roll(pool_members, accept),
+            lambda: bench_mod.elastic_roll(
+                pool_members, accept,
+                steps_per_pass=ELASTIC_STEPS_PER_PASS),
             sharded_kernels,
         )
         parts = (er["slowest_step_s"] + er["slowest_resize_s"]
@@ -2376,7 +2396,7 @@ def main() -> int:
                 and er["leftover_excluded"] == 0,
                 f"elastic roll ({variant}): {er}")
         require(er["canary_steps"]
-                == bench_mod.ELASTIC_STEPS_PER_PASS * er["passes"]
+                == ELASTIC_STEPS_PER_PASS * er["passes"]
                 and er["meshes"] == ([(2, 4), (3, 2)] if accept
                                      else [(2, 4)]),
                 f"elastic roll ({variant}): {er['canary_steps']} steps over "
@@ -2509,6 +2529,43 @@ def main() -> int:
             and het["held_cordons_while_closed"] == 0,
             f"heterogeneous stage: {het}")
     print(f"[stages] phase 15 took {time.perf_counter() - t15:.2f} s",
+          flush=True)
+
+    # -- 16. the guard's stages over GFD-labelled H100 fleets ---------------
+    # Host stages at the reference guard's node counts (each GFD node its
+    # own pool: 4096 and 100,000 of them), the packed stage on the
+    # reference's TPU slices, the fused battery and the async gate over
+    # the 8 members at production size (counted as a path: it must launch
+    # K1, its verifying pass, K2, K4 and K5, with no fused fallback), the
+    # tracing stage's timed rolls each in a child of its own, the
+    # 100,000-node stage last, in a child as well.
+    t16 = time.perf_counter()
+    from k8s_operator_libs_tpu_torch import bench_guard
+
+    torch.cuda.empty_cache()
+    for gname, run in bench_guard.stages(pool_members):
+        t0 = time.perf_counter()
+        if gname == "probe_battery":
+            record = on_path(
+                f"guard battery stage, fused battery over "
+                f"{len(pool_members)} members at production size",
+                run, fused_kernels + collective_kernels)
+        else:
+            record = run()
+        failures = bench_guard.check(record)
+        print(f"[guard] {gname}: {time.perf_counter() - t0:.3f} s on the "
+              f"host of {card}; "
+              + json.dumps(record, sort_keys=True, default=str), flush=True)
+        require(not failures, f"guard stage {gname}: {failures}")
+        if gname == "probe_battery":
+            require(record["fallbacks"] == 0 and record["warm_cache_hit"],
+                    f"guard battery stage: fallbacks {record['fallbacks']}, "
+                    f"warm cache hit {record['warm_cache_hit']}")
+        elif gname in ("sharded_reconcile", "incremental_100k"):
+            require(record["pools"] == record["nodes"],
+                    f"guard {gname}: {record['pools']} pools of "
+                    f"{record['nodes']} GFD nodes")
+    print(f"[guard] phase 16 took {time.perf_counter() - t16:.2f} s",
           flush=True)
 
     print("[launches] main path total: "

@@ -21,15 +21,9 @@ driver roll across an HGX H100 pool with the canary's downtime as its
 headline).
 """
 
-from k8s_operator_libs_tpu_torch.health import (
-    HEALTH_CHECKS_ALL,
-    CheckResult,
-    HealthReport,
-    LocalDeviceProber,
-    NodeReportProber,
-    run_host_probe,
-)
-
+# The health battery's names, imported on first use: importing the
+# package, or its engine and guard alone, loads no torch (the CUDA
+# build's libraries are resident gigabytes in a controller's process).
 __all__ = [
     "CheckResult",
     "HEALTH_CHECKS_ALL",
@@ -38,3 +32,11 @@ __all__ = [
     "NodeReportProber",
     "run_host_probe",
 ]
+
+
+def __getattr__(name: str):
+    if name in __all__:
+        from k8s_operator_libs_tpu_torch import health
+
+        return getattr(health, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

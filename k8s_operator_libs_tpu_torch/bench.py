@@ -80,11 +80,19 @@ the downtime (on a fleet each node has its own GPUs and nothing waits).
 
 Output: one JSON line of at most 2 KB on stdout (:mod:`.bench_io`), the
 full record in ``build/bench_torch/details.json``, progress on stderr.
+The exit code is 0 only when the sequential roll completed with its
+attribution check, the controller roll completed and every guard pin
+held.
 
-:func:`controller_roll` is the operator's own loop on a mixed pool (the
-port's ``UpgradeController`` owning both DaemonSets, its metrics served
-over HTTP, the status CLI's gather); ``chip_smoke.py`` and the tests
-drive it, the bench's line does not carry it yet.
+- **controller roll** (:func:`controller_roll`): the operator's own loop
+  on a mixed pool of four GFD-labelled nodes (the port's
+  ``UpgradeController`` owning both DaemonSets, its metrics served over
+  HTTP, the status CLI's gather); admission PCIe, SXM, SXM, NVL;
+- **guard stages** (:func:`guard_stages`): every stage of
+  :mod:`.bench_guard` (cached, sharded, write hygiene, planner, packed
+  admission, tracing, telemetry, multi-artifact, the fused battery and
+  its async gate over the 8 members), the tracing stage's timed rolls
+  each in a child, the 100,000-node stage last, in a child as well.
 """
 
 from __future__ import annotations
@@ -119,6 +127,12 @@ from k8s_operator_libs_tpu_torch.api.v1alpha1 import (
     MaintenanceWindowSpec,
     PoolSpec,
 )
+from k8s_operator_libs_tpu_torch.bench_fleet import (
+    GPU_NAMESPACE,
+    GPUS_PER_NODE,
+    GpuFleet,
+)
+from k8s_operator_libs_tpu_torch import bench_guard
 from k8s_operator_libs_tpu_torch.bench_io import emit
 from k8s_operator_libs_tpu_torch.coordination import (
     RunnerElasticRuntime,
@@ -155,7 +169,6 @@ from k8s_operator_libs_tpu_torch.health.agent import (
 from k8s_operator_libs_tpu_torch.health.fused import battery_stats
 from k8s_operator_libs_tpu_torch.health.report import fused_battery_telemetry
 from k8s_operator_libs_tpu_torch.fleet.profiles import GPU_PRODUCT_LABELS
-from k8s_operator_libs_tpu_torch.health.slice_prober import GPU_COUNT_LABELS
 from k8s_operator_libs_tpu_torch.hostenv import cpu_child_env, probe_cuda_init
 from k8s_operator_libs_tpu_torch.keys import (
     DRIVER_LABELS,
@@ -164,28 +177,13 @@ from k8s_operator_libs_tpu_torch.keys import (
     keys_from_env,
 )
 from k8s_operator_libs_tpu_torch.k8s import (
-    ContainerStatus,
-    DaemonSet,
     FakeCluster,
     KubeApiServer,
     KubeConfig,
-    Node,
     NotFoundError,
-    ObjectMeta,
-    OwnerReference,
-    Pod,
-    PodPhase,
     RestClient,
 )
 from k8s_operator_libs_tpu_torch.k8s.faults import FaultSchedule
-from k8s_operator_libs_tpu_torch.k8s.objects import (
-    DaemonSetSpec,
-    DaemonSetStatus,
-    LabelSelectorSpec,
-    PodSpec,
-    PodStatus,
-    PodTemplateSpec,
-)
 from k8s_operator_libs_tpu_torch.k8s.retry import (
     CircuitBreaker,
     ResilientClient,
@@ -219,8 +217,6 @@ N_NODES = 4
 # ring-a's pair: a step needs both nodes.
 DCN_RINGS = ("ring-a", "ring-a", "ring-b", "ring-b")
 DCN_CANARY_NODES = (0, 1)
-GPUS_PER_NODE = 8
-GPU_PRODUCT = "NVIDIA-H100-80GB-HBM3"
 # Per-roll watchdog.  The gate's timeout sits well below it, so a gate
 # that never passes ends the roll as upgrade-failed inside the window.
 ROLL_BUDGET_S = 240.0
@@ -236,7 +232,7 @@ DETAILS_PATH = (
 )
 # The NVIDIA GPU operator's keys ("nvidia.com/gpu-driver-upgrade-state").
 KEYS = driver_keys()
-NAMESPACE = "gpu-operator"
+NAMESPACE = GPU_NAMESPACE
 # The JAX bench's canary (bench.py:1177-1180): 102,777,856 parameters.
 BENCH_CANARY = CanaryConfig(
     vocab=1024, d_model=1024, n_heads=16, n_layers=8, d_ff=4096,
@@ -275,96 +271,10 @@ def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
-class _Fleet:
-    """Builds the pool's driver DaemonSet, nodes and driver pods in a
-    ``FakeCluster`` (the JAX package's test fixtures, which the port does
-    not import, for GPU nodes)."""
-
-    def __init__(self, client: FakeCluster) -> None:
-        self.client = client
-
-    def daemon_set(self, hash_suffix: str, revision: int) -> DaemonSet:
-        ds = DaemonSet(
-            metadata=ObjectMeta(name="nvidia-driver-daemonset",
-                                namespace=NAMESPACE,
-                                labels=dict(DRIVER_LABELS)),
-            spec=DaemonSetSpec(
-                selector=LabelSelectorSpec(dict(DRIVER_LABELS)),
-                template=PodTemplateSpec(labels=dict(DRIVER_LABELS)),
-            ),
-            status=DaemonSetStatus(desired_number_scheduled=0),
-        )
-        self.client.create_daemon_set(ds)
-        self.client.add_daemon_set_revision(ds, hash_suffix, revision)
-        return ds
-
-    def bump_daemon_set_template(self, ds: DaemonSet, hash_suffix: str,
-                                 revision: int) -> None:
-        """Record a new template revision (the roll's trigger)."""
-        self.client.add_daemon_set_revision(ds, hash_suffix, revision)
-
-    def gpu_node(self, name: str, product: str = GPU_PRODUCT,
-                 labels: Optional[dict] = None) -> Node:
-        """An HGX H100 node as GPU Feature Discovery labels it, with
-        ``labels`` besides (a DCN ring, say)."""
-        node = Node(metadata=ObjectMeta(name=name, labels={
-            GPU_PRODUCT_LABELS[0]: product,
-            GPU_COUNT_LABELS[0]: str(GPUS_PER_NODE),
-            **(labels or {}),
-        }))
-        self.client.create_node(node)
-        return node
-
-    def workload_pod(self, node: Node, name: str) -> Pod:
-        """A running pod of a Job on ``node``, in namespace ``default``."""
-        pod = Pod(
-            metadata=ObjectMeta(
-                name=name, namespace="default",
-                owner_references=[OwnerReference(name="job", uid="job-1",
-                                                 kind="Job")],
-            ),
-            spec=PodSpec(node_name=node.name),
-            status=PodStatus(phase=PodPhase.RUNNING),
-        )
-        self.client.create_pod(pod)
-        return pod
-
-    def _pod(self, name: str, node_name: str, hash_suffix: str,
-             owners: list) -> Pod:
-        labels = dict(DRIVER_LABELS, **{"controller-revision-hash":
-                                        hash_suffix})
-        return Pod(
-            metadata=ObjectMeta(name=name, namespace=NAMESPACE,
-                                labels=labels, owner_references=owners),
-            spec=PodSpec(node_name=node_name),
-            status=PodStatus(phase=PodPhase.RUNNING,
-                             container_statuses=[ContainerStatus(ready=True)]),
-        )
-
-    def driver_pod(self, node: Node, ds: DaemonSet, hash_suffix: str) -> Pod:
-        """A running driver pod of ``ds`` on ``node``."""
-        owner = OwnerReference(name=ds.name, uid=ds.metadata.uid,
-                               kind="DaemonSet")
-        pod = self._pod(f"driver-{node.name}", node.name, hash_suffix,
-                        [owner])
-        self.client.create_pod(pod)
-        ds.status.desired_number_scheduled += 1
-        self.client.update_daemon_set(ds)
-        return pod
-
-    def auto_recreate_driver_pods(self, ds: DaemonSet,
-                                  hash_suffix: str) -> None:
-        """The DaemonSet controller: a deleted driver pod of ``ds`` comes
-        back at ``hash_suffix``."""
-
-        def hook(pod: Pod) -> None:
-            owners = pod.metadata.owner_references
-            if owners and owners[0].uid == ds.metadata.uid:
-                self.client.create_pod(self._pod(
-                    pod.name, pod.spec.node_name, hash_suffix, list(owners)
-                ))
-
-        self.client.on_pod_deleted(hook)
+def _fleet(client: FakeCluster) -> GpuFleet:
+    """The bench's fleet: GFD-labelled nodes and the GPU operator's
+    driver DaemonSet, on the bench's keys and namespace."""
+    return GpuFleet(client, KEYS, NAMESPACE)
 
 
 def longest_gap(step_times: Sequence[float], window_start: float,
@@ -409,8 +319,8 @@ class RollHarness:
         self.dcn = dcn
         self.event_recorder = event_recorder
         self.cluster = FakeCluster(api_latency_s=0.001, cache_lag_s=0.05)
-        self.fleet = _Fleet(self.cluster)
-        ds = self.fleet.daemon_set("v1", 1)
+        self.fleet = _fleet(self.cluster)
+        ds = self.fleet.driver_daemon_set("v1", 1)
         self.nodes = [
             self.fleet.gpu_node(
                 f"pool-{i}",
@@ -838,7 +748,7 @@ def controller_roll(members: Sequence, size: BatterySize = IN_FLIGHT) -> dict:
     ``MetricsServer`` (a free loopback port) is scraped over HTTP and the
     status CLI's ``gather`` read."""
     cluster = FakeCluster()
-    fleet = _Fleet(cluster)
+    fleet = _fleet(cluster)
     nodes = [fleet.gpu_node(name, product)
              for name, product in CONTROLLER_POOL]
     driver = DriverDaemonSetSpec(namespace=NAMESPACE, version="1")
@@ -996,8 +906,8 @@ class ElasticPool:
 
     def __init__(self, runtime, accept: bool) -> None:
         self.cluster = FakeCluster()
-        fleet = _Fleet(self.cluster)
-        ds = fleet.daemon_set("v1", 1)
+        fleet = _fleet(self.cluster)
+        ds = fleet.driver_daemon_set("v1", 1)
         self.slice_ids = [f"pool-{i}" for i in range(ELASTIC_N_SLICES)]
         for sid in self.slice_ids:
             fleet.driver_pod(fleet.gpu_node(sid), ds, "v1")
@@ -1050,7 +960,8 @@ class ElasticPool:
 
 
 def elastic_roll(
-    members: Sequence, accept: bool, cfg: CanaryConfig = BENCH_CANARY
+    members: Sequence, accept: bool, cfg: CanaryConfig = BENCH_CANARY,
+    steps_per_pass: int = ELASTIC_STEPS_PER_PASS,
 ) -> dict:
     """One roll of an :class:`ElasticPool` through the elastic
     negotiation, with an ``ElasticCanaryRunner`` over ``members`` (slice
@@ -1058,7 +969,7 @@ def elastic_roll(
     offers: ``accept`` excludes and rejoins every slice, otherwise every
     offer is declined and each node takes the drain path.  Each pass is
     one engine pass, one poll of the workload's coordinator, then
-    ``ELASTIC_STEPS_PER_PASS`` canary steps.
+    ``steps_per_pass`` canary steps.
 
     Returns the JAX stage's record (``max_gap_s`` the canary's longest
     gap between steps, ``downtime_s`` 0.0 while it stays under
@@ -1094,7 +1005,7 @@ def elastic_roll(
             time.monotonic() - mark
             - sum(e["seconds"] for e in runner.resize_events[resized:])
         )
-        for _ in range(ELASTIC_STEPS_PER_PASS):
+        for _ in range(steps_per_pass):
             s0 = time.monotonic()
             runner.run_step()
             step_s.append(runner.step_times[-1] - s0)
@@ -1122,6 +1033,7 @@ def elastic_roll(
         "leftover_excluded": pool.leftover_excluded(),
         "gap_ceiling_s": ELASTIC_GAP_CEILING_S,
         "passes": passes,
+        "steps_per_pass": steps_per_pass,
         "wall_s": wall_s,
         "slowest_step_s": max(step_s),
         "slowest_resize_s": max(resize_s, default=0.0),
@@ -1168,8 +1080,8 @@ def federation_roll(
         name = chr(ord("a") + idx)
         regions[name] = f"r{idx + 1}"
         fake = FakeCluster()
-        fleet = _Fleet(fake)
-        ds = fleet.daemon_set("hash-1", 1)
+        fleet = _fleet(fake)
+        ds = fleet.driver_daemon_set("hash-1", 1)
         nodes = [fleet.gpu_node(f"{name}-s{i:02d}")
                  for i in range(nodes_per_cluster)]
         for node in nodes:
@@ -1579,7 +1491,7 @@ def dcn_collective_stage(
     rings = ["ring-a", "ring-b"]
     t0 = time.monotonic()
     store = FakeCluster()
-    fleet = _Fleet(store)
+    fleet = _fleet(store)
     nodes = [fleet.gpu_node(f"dcn-{ring}",
                             labels={KEYS.dcn_group_label: ring})
              for ring in rings]
@@ -1693,8 +1605,8 @@ def heterogeneous_roll() -> dict:
     holds no cordon while its window is closed; once it opens the fleet
     converges.  Host work only; returns the JAX stage's record."""
     cluster = FakeCluster()
-    fleet = _Fleet(cluster)
-    ds = fleet.daemon_set("v1", 1)
+    fleet = _fleet(cluster)
+    ds = fleet.driver_daemon_set("v1", 1)
     pools = {gen: [fleet.gpu_node(name, product) for name in names]
              for gen, product, names in HET_POOLS}
     for nodes in pools.values():
@@ -1784,6 +1696,23 @@ def heterogeneous_roll() -> dict:
     }
 
 
+def guard_stages(members: Sequence) -> dict:
+    """Every stage of :mod:`.bench_guard` in its order, the battery over
+    ``members``, the 100,000-node stage last (in a child of its own).
+    Each record carries its ``ok``, its ``failures`` and ``stage_s``."""
+    out = {}
+    for name, run in bench_guard.stages(members):
+        log(f"guard: {name} starts")
+        t0 = time.monotonic()
+        record = run()
+        record["failures"] = bench_guard.check(record)
+        record["stage_s"] = time.monotonic() - t0
+        log(f"guard: {name} ok={record['ok']} in {record['stage_s']:.3f} s"
+            + (f": {record['failures']}" if record["failures"] else ""))
+        out[name] = record
+    return out
+
+
 def battery_stage(members: Sequence) -> dict:
     """The production-size battery over ``members``: unfused cold and
     warm, then fused cold and warm."""
@@ -1816,12 +1745,12 @@ def summarize(records: dict) -> dict:
     pins, from the records :func:`main` gathers (``card``, ``battery``,
     ``sequential``, ``pipelined``, ``elastic``, ``federation``, ``dcn``,
     ``dcn_collective``, ``failure_injection``, ``heterogeneous``,
-    ``preflight``)."""
+    ``controller``, ``guard``, ``preflight``)."""
     card, battery = records["card"], records["battery"]
     seq, pipe = records["sequential"], records["pipelined"]
     elastic, federation = records["elastic"], records["federation"]
     dcn, failinj = records["dcn"], records["failure_injection"]
-    het = records["heterogeneous"]
+    het, ctl = records["heterogeneous"], records["controller"]
     metrics = battery["metrics"]
     summary = {
         "complete": seq["complete"],
@@ -1861,6 +1790,14 @@ def summarize(records: dict) -> dict:
         "heterogeneous_oldest_first": het["oldest_first"],
         "heterogeneous_held_transitions":
             het["held_transitions_while_closed"],
+        "controller_complete": ctl["complete"],
+        "controller_admitted": ctl["admitted"],
+        "controller_fleet_nodes": ctl["fleet_nodes"],
+        "controller_passes": ctl["passes"],
+        "controller_wall_s": _num(ctl["wall_s"], 3),
+        # Each guard stage: [ok, its headline number].
+        "guard": {name: [r["ok"], float(f"{r[bench_guard.PINS[name][1]]:.4g}")]
+                  for name, r in records["guard"].items()},
         "canary_steps": seq["canary_steps"],
         "canary_median_step_s": _num(
             seq["canary_perf"].get("median_step_s"), 4),
@@ -1927,6 +1864,10 @@ def main() -> int:
     het = heterogeneous_roll()
     log(f"heterogeneous roll: converged={het['converged']} order "
         f"{het['admission_order']}")
+    ctl = controller_roll(members)
+    log(f"controller roll: complete={ctl['complete']} admitted "
+        f"{ctl['admitted']} in {ctl['wall_s']:.3f} s")
+    guard = guard_stages(members)
 
     card = {"kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}
@@ -1935,7 +1876,7 @@ def main() -> int:
         "pipelined": pipe, "elastic": elastic, "federation": federation,
         "dcn": dcn, "dcn_collective": collective,
         "failure_injection": failinj, "heterogeneous": het,
-        "preflight": preflight,
+        "controller": ctl, "guard": guard, "preflight": preflight,
     }
     details = {
         **{k: v for k, v in records.items() if k != "card"},
@@ -1962,7 +1903,9 @@ def main() -> int:
         full_details=details,
         details_path=str(DETAILS_PATH),
     )
-    return 0 if complete and seq["attribution"]["ok"] else 1
+    guard_ok = all(r["ok"] for r in guard.values())
+    return (0 if complete and seq["attribution"]["ok"] and ctl["complete"]
+            and guard_ok else 1)
 
 
 if __name__ == "__main__":

@@ -46,6 +46,12 @@ GPU_PRODUCT_LABELS = (
     "cloud.google.com/gke-accelerator",
 )
 
+# Node labels naming a GPU host's device count, in the same order.
+GPU_COUNT_LABELS = (
+    "nvidia.com/gpu.count",
+    "cloud.google.com/gke-accelerator-count",
+)
+
 # Default floor fractions of the published peak (same values as the TPU
 # profiles): sustained readings below half of spec on hardware that
 # enumerates fine are the silent-degradation mode the probes exist to

@@ -19,7 +19,7 @@ The engine builds ``slice_info`` only from TPU labels, so every GPU node
 reaches the gate as a singleton group without one.  For such a group the
 accelerator and the device count come from each node's own labels
 (``fleet.profiles.node_accelerator``, the engine's own reader, and
-:data:`GPU_COUNT_LABELS`), and the count
+``fleet.profiles.GPU_COUNT_LABELS``), and the count
 check and the generation's floors apply per node; a node without them
 is unknown and nothing is enforced, as for an unknown accelerator.  Its
 DCN ring comes from ``fleet.profiles.group_dcn_group`` (the node's
@@ -36,6 +36,7 @@ import torch
 
 from k8s_operator_libs_tpu_torch.consts import get_logger
 from k8s_operator_libs_tpu_torch.fleet.profiles import (
+    GPU_COUNT_LABELS,
     _node_label,
     generation_profile,
     group_dcn_group,
@@ -54,14 +55,6 @@ logger = get_logger(__name__)
 # A report older than this can't validate: the driver pod restarted more
 # recently than the probe ran, or the agent is wedged.
 DEFAULT_MAX_REPORT_AGE_S = 600.0
-
-# Node labels naming a GPU host's device count, GPU Feature Discovery's
-# first, then GKE's (the accelerator's are ``fleet.profiles``').
-GPU_COUNT_LABELS = (
-    "nvidia.com/gpu.count",
-    "cloud.google.com/gke-accelerator-count",
-)
-
 
 class LocalDeviceProber:
     """Run the probe battery in-process on locally-visible devices."""

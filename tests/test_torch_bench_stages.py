@@ -9,7 +9,8 @@ failure roll reaches every pin of the bench's; the heterogeneous stage's
 pins are those of the JAX package's own ``measure_heterogeneous``; the
 cross-ring world of two worker processes on the CPU passes, and a worker
 that dies, prints garbage or hangs is recorded, not raised; the bench's
-line with every stage's pins stays within 2 KB and drops none.
+line with every stage's pins (the controller roll's and each guard
+stage's among them) stays within 2 KB and drops none.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from k8s_operator_libs_tpu_torch import bench  # noqa: E402
+from k8s_operator_libs_tpu_torch import bench_guard  # noqa: E402
 from k8s_operator_libs_tpu_torch import bench_io  # noqa: E402
 from k8s_operator_libs_tpu_torch.workloads.canary import (  # noqa: E402
     CanaryConfig,
@@ -214,8 +216,14 @@ def test_a_failed_worker_is_recorded_not_raised(source, timeout_s, error):
         }
 
 
+@pytest.fixture(scope="module")
+def controller(_one_torch_thread):
+    return bench.controller_roll(MEMBERS, SMALL)
+
+
 def test_the_line_carries_every_stage_pin(dcn, failinj, heterogeneous,
-                                          collective, capsys, tmp_path):
+                                          collective, controller, capsys,
+                                          tmp_path):
     run = {"complete": True, "wall_s": 41.123456, "downtime_s": 9.876543,
            "node_windows_s": {f"pool-{i}": 10.123456 for i in range(4)},
            "lock": {"wait_in_longest_gap_s": 0.123456,
@@ -237,6 +245,10 @@ def test_the_line_carries_every_stage_pin(dcn, failinj, heterogeneous,
         "federation": {"converged": True},
         "dcn": dcn, "dcn_collective": collective,
         "failure_injection": failinj, "heterogeneous": heterogeneous,
+        "controller": controller,
+        # Each guard stage's ok and a headline of many digits.
+        "guard": {name: {"ok": True, key: 1234.56789012}
+                  for name, (_, key) in bench_guard.PINS.items()},
         "preflight": {"seconds": 8.123456},
     }
     summary = bench.summarize(records)
@@ -258,6 +270,14 @@ def test_the_line_carries_every_stage_pin(dcn, failinj, heterogeneous,
     assert details["failinj_recovery_ticks"] >= 1
     assert details["failinj_failed_within_s"] <= (
         SHORT["validation_timeout_s"] + bench.FAILINJ_FAIL_SLACK_S)
+    assert details["controller_complete"] is True
+    assert details["controller_admitted"] == [
+        "pool-3", "pool-1", "pool-2", "pool-0"]
+    assert details["controller_fleet_nodes"] == {
+        "h100-pcie": 1.0, "h100-sxm": 2.0, "h100-nvl": 1.0}
+    assert details["controller_passes"] == controller["passes"]
+    assert details["guard"] == {name: [True, 1235.0]
+                                for name in bench_guard.PINS}
     assert details["heterogeneous_converged"] is True
     assert details["heterogeneous_oldest_first"] is True
     assert details["heterogeneous_held_transitions"] == 0

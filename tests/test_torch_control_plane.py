@@ -17,6 +17,7 @@ import re
 import sys
 import types
 from pathlib import Path
+from typing import Optional
 
 import pytest
 
@@ -26,6 +27,7 @@ from k8s_operator_libs_tpu import api as japi
 from k8s_operator_libs_tpu import k8s as jk8s
 from k8s_operator_libs_tpu import upgrade as jup
 from k8s_operator_libs_tpu_torch import api as tapi
+from k8s_operator_libs_tpu_torch import bench_fleet
 from k8s_operator_libs_tpu_torch import k8s as tk8s
 from k8s_operator_libs_tpu_torch import upgrade as tup
 
@@ -473,8 +475,8 @@ OWN_COPIES: dict[str, list[tuple[str, str]]] = {
 }
 
 
-def _code(source: str) -> str:
-    """``ast.dump`` of ``source`` without its module, class and function
+def _strip_docstrings(source: str) -> ast.Module:
+    """``source`` parsed, without its module, class and function
     docstrings."""
     tree = ast.parse(source)
     for node in ast.walk(tree):
@@ -485,7 +487,13 @@ def _code(source: str) -> str:
                     and isinstance(body[0].value, ast.Constant)
                     and isinstance(body[0].value.value, str)):
                 node.body = body[1:] or [ast.Pass()]
-    return ast.dump(tree)
+    return tree
+
+
+def _code(source: str) -> str:
+    """``ast.dump`` of ``source`` without its module, class and function
+    docstrings."""
+    return ast.dump(_strip_docstrings(source))
 
 
 def _reference(module: str) -> str:
@@ -584,10 +592,13 @@ def test_every_reference_module_has_its_counterpart():
     assert missing == UNPORTED_NAMES
 
 
-def port_module(test_file: str) -> types.ModuleType:
+def port_module(test_file: str,
+                modules: Optional[dict] = None) -> types.ModuleType:
     """The reference's ``tests/<test_file>`` against the port: its source
     with the package prefix rewritten and ``tests.fixtures`` replaced by
-    the port's (``ENGINES``), executed as a module of its own."""
+    the port's (``ENGINES``), executed as a module of its own.
+    ``modules`` maps another test module the file imports from
+    (``"tests.test_chaos"``) to the port module that replaces it."""
     fixtures = ENGINES["port"][3]
     sys.modules.setdefault(fixtures.__name__, fixtures)
     source = PREFIX.sub(_P, (ROOT / "tests" / test_file).read_text())
@@ -595,6 +606,10 @@ def port_module(test_file: str) -> types.ModuleType:
     source = source.replace(
         "from tests.fixtures import", f"from {fixtures.__name__} import"
     )
+    for name, module in (modules or {}).items():
+        assert f"from {name} import" in source, (test_file, name)
+        source = source.replace(f"from {name} import",
+                                f"from {module.__name__} import")
     name = f"_port_{Path(test_file).stem}"
     module = types.ModuleType(name)
     sys.modules[name] = module
@@ -623,10 +638,28 @@ def _fixtures(package: str) -> types.ModuleType:
     return module
 
 
+# The port's fixtures are ``bench_fleet``, which begins with
+# tests/fixtures.py's code (test_the_bench_fleet_begins_with_the_fixtures).
 ENGINES = {
     "jax": (japi, jk8s, jup, _fixtures("k8s_operator_libs_tpu")),
-    "port": (tapi, tk8s, tup, _fixtures("k8s_operator_libs_tpu_torch")),
+    "port": (tapi, tk8s, tup, bench_fleet),
 }
+
+
+def _statements(source: str) -> list[str]:
+    """``ast.dump`` of each top-level statement of ``source``, docstrings
+    stripped."""
+    return [ast.dump(s) for s in _strip_docstrings(source).body]
+
+
+def test_the_bench_fleet_begins_with_the_fixtures():
+    """``bench_fleet.py`` is ``tests/fixtures.py``'s code, the prefix
+    rewritten, statement for statement, then the port's own part."""
+    ref = _statements(PREFIX.sub(_P, (ROOT / "tests" / "fixtures.py")
+                                 .read_text()))
+    port = _statements((PORT / "bench_fleet.py").read_text())
+    assert len(port) > len(ref)
+    assert port[:len(ref)] == ref
 
 
 class ScriptedProber:

@@ -75,6 +75,8 @@ def test_importing_every_port_module_loads_no_jax():
         "k8s_operator_libs_tpu_torch.artifacts.dag",
         "k8s_operator_libs_tpu_torch.artifacts.gates",
         "k8s_operator_libs_tpu_torch.bench",
+        "k8s_operator_libs_tpu_torch.bench_fleet",
+        "k8s_operator_libs_tpu_torch.bench_guard",
         "k8s_operator_libs_tpu_torch.bench_io",
         "k8s_operator_libs_tpu_torch.entry",
         "k8s_operator_libs_tpu_torch.health.agent",
@@ -89,7 +91,9 @@ def test_importing_every_port_module_loads_no_jax():
     } <= set(modules)
 
 
-@pytest.mark.parametrize("entry", ["controller", "status", "manifests"])
+@pytest.mark.parametrize(
+    "entry", ["controller", "status", "manifests", "bench_guard",
+              "bench_fleet"])
 def test_the_operator_entry_points_load_no_jax(entry):
     """``python -m k8s_operator_libs_tpu_torch.<entry>`` imports its
     module alone: neither jax nor the JAX package comes with it."""
@@ -105,6 +109,25 @@ def test_the_operator_entry_points_load_no_jax(entry):
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("module", ["", ".bench_guard", ".bench_fleet",
+                                    ".upgrade", ".k8s", ".planning"])
+def test_the_package_engine_and_guard_load_no_torch(module):
+    """The package, its engine and the guard import no torch: the guard's
+    100,000-node stage runs in a child of its own, whose peak RSS would
+    otherwise start at the CUDA build's resident libraries."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module('k8s_operator_libs_tpu_torch{module}')\n"
+        "print('torch' in sys.modules)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "False"
 
 
 @pytest.mark.parametrize(
