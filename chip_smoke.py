@@ -182,14 +182,26 @@ Phases:
    production size (a path: K1, its verifying pass, K2, K4 and K5, no
    fallback), then the 100,000-node incremental reconcile (100,000
    pools) in a child of its own.  Each record is printed with its host
-   seconds, and every pin must hold.
+   seconds, and every pin must hold;
+17. the controller's own modes (``bench.controller_modes``), each
+   rolling phase 13's pool on a fresh cluster with every validation
+   gated by the agents' fused batteries over 8 members of the card:
+   first the dry run of a watch-mode controller (its plan's order, no
+   write), then its watch-driven roll (resync 120 s, so the roll runs on
+   events alone), the sharded one (4 shards, dirty passes, an idle tick
+   after that walks no pool) and the leader-elected pair, whose leader
+   stops without releasing its Lease once a node is done and whose
+   standby takes the Lease and completes the roll, one leader at a
+   time.  Each admits PCIe, both SXM, then NVL, cordons each node once,
+   and prints its wall, passes and batteries.
 
-Kernel launch counts are zeroed just before each path of phases 4-16
+Kernel launch counts are zeroed just before each path of phases 4-17
 (unfused, fused cold, fused warm, agent, local prober, the collective
 paths, the ring paths, the battery with the deep flag, the canary, the
 sharded and elastic canaries, the unfused agent of the labelled node,
 the network-path checks, the roll, the controller's roll, both elastic
-rolls, the DCN and failure-injection rolls, the guard's battery stage)
+rolls, the DCN and failure-injection rolls, the guard's battery stage,
+the controller's modes)
 and read just after it: each
 path names the kernels it must launch (K1 and K2 on the battery paths,
 K1's verifying pass as well on the fused ones, K3 on the ring
@@ -2566,6 +2578,52 @@ def main() -> int:
                     f"guard {gname}: {record['pools']} pools of "
                     f"{record['nodes']} GFD nodes")
     print(f"[guard] phase 16 took {time.perf_counter() - t16:.2f} s",
+          flush=True)
+
+    # -- 17. the controller's own modes on the card ------------------------
+    # The watch-driven, sharded and leader-elected loops roll the
+    # controller roll's pool, each on a fresh cluster, every validation
+    # gated by the agents' fused batteries over the 8 members (a path:
+    # K1, its verifying pass, K2, K4 and K5, no fused fallback); the
+    # dry run's plan comes before the watch roll.
+    t17 = time.perf_counter()
+    torch.cuda.empty_cache()
+    modes_fallbacks = fused.battery_stats()["fallbacks"]
+    modes = on_path(
+        "controller modes (watch, sharded, failover), 4 GFD-labelled H100 "
+        "nodes",
+        lambda: bench_mod.controller_modes(pool_members),
+        fused_kernels + collective_kernels,
+    )
+    dry = modes["dry_run"]
+    print(f"[modes] dry_run: plan {dry['plan_order']} in "
+          f"{dry['plan_waves']} waves, {dry['writes']} writes", flush=True)
+    for mode in ("watch", "sharded", "failover"):
+        m = modes[mode]
+        extra = ""
+        if mode == "sharded":
+            extra = (f"; an idle tick after walked "
+                     f"{m.get('idle_tick_pools_walked')} pools")
+        elif mode == "failover":
+            extra = (f"; {m['crashed']} crashed (identity, s), Lease "
+                     f"holders {m['lease_holders']}, at most "
+                     f"{m['most_leading_at_once']} leading at once")
+        print(f"[modes] {mode}: complete={m['complete']} in "
+              f"{m['wall_s']:.3f} s, admitted {m['admitted']}, passes "
+              f"{m['passes']}, cordons {m['cordons']}, node windows "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in
+                          sorted(m["node_windows_s"].items())
+                          if v is not None)
+              + f"; {m['batteries']} agent batteries over "
+              f"{len(pool_members)} members, {m['battery_s']:.3f} s{extra}; "
+              f"on {card}", flush=True)
+    modes_pins = bench_mod.controller_modes_pins(modes)
+    print(f"[modes] pins {modes_pins}", flush=True)
+    require(all(modes_pins.values()), f"controller modes' pins: {modes_pins}")
+    require(fused.battery_stats()["fallbacks"] == modes_fallbacks,
+            f"fused fallbacks on the controller modes: "
+            f"{fused.battery_stats()}")
+    print(f"[modes] phase 17 took {time.perf_counter() - t17:.2f} s",
           flush=True)
 
     print("[launches] main path total: "

@@ -98,6 +98,7 @@ held.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import socket
@@ -171,6 +172,7 @@ from k8s_operator_libs_tpu_torch.health.report import fused_battery_telemetry
 from k8s_operator_libs_tpu_torch.fleet.profiles import GPU_PRODUCT_LABELS
 from k8s_operator_libs_tpu_torch.hostenv import cpu_child_env, probe_cuda_init
 from k8s_operator_libs_tpu_torch.keys import (
+    CONTROLLER_NAME,
     DRIVER_LABELS,
     DRIVER_NAME_ENV,
     driver_keys,
@@ -184,6 +186,12 @@ from k8s_operator_libs_tpu_torch.k8s import (
     RestClient,
 )
 from k8s_operator_libs_tpu_torch.k8s.faults import FaultSchedule
+from k8s_operator_libs_tpu_torch.k8s.leader import (
+    LEASE_GROUP,
+    LEASE_PLURAL,
+    LEASE_VERSION,
+    LeaderElector,
+)
 from k8s_operator_libs_tpu_torch.k8s.retry import (
     CircuitBreaker,
     ResilientClient,
@@ -733,78 +741,105 @@ def _run_agent(cluster: FakeCluster, node: str, members: Sequence,
     return agent
 
 
-def controller_roll(members: Sequence, size: BatterySize = IN_FLIGHT) -> dict:
-    """The port's ``UpgradeController``, on its default keys and
-    selector, rolls :data:`CONTROLLER_POOL` on a ``FakeCluster``.
+class ControllerRig:
+    """A fresh ``FakeCluster`` holding :data:`CONTROLLER_POOL`, the driver
+    and agent DaemonSet specs a controller owns, and the stand-ins for
+    the DaemonSet controller (a ControllerRevision per driver template,
+    the driver pods) and the agents: each node's ``HealthAgent`` over
+    ``members`` at ``size``, with its keys and revision from the live
+    agent DaemonSet's env."""
 
-    The controller owns both DaemonSets (driver and agent,
-    ``generation_floors`` on, one upgrade at a time, drain on).  This
-    function stands in for the DaemonSet controller (a ControllerRevision
-    per driver template, the driver pods) and for the agents: each node's
-    ``HealthAgent`` over ``members`` at ``size`` reports once before the
-    roll, then whenever its node waits at ``validation-required``, with
-    its keys and revision from the live agent DaemonSet's env.  The roll
-    bumps the driver spec's version.  After it, the controller's
-    ``MetricsServer`` (a free loopback port) is scraped over HTTP and the
-    status CLI's ``gather`` read."""
-    cluster = FakeCluster()
-    fleet = _fleet(cluster)
-    nodes = [fleet.gpu_node(name, product)
-             for name, product in CONTROLLER_POOL]
-    driver = DriverDaemonSetSpec(namespace=NAMESPACE, version="1")
-    agent = AgentDaemonSetSpec(namespace=NAMESPACE)
-    controller = UpgradeController(cluster, ControllerConfig(
-        namespace=NAMESPACE,
-        interval_s=0.0,
-        policy=TPUUpgradePolicySpec(
-            auto_upgrade=True,
-            max_parallel_upgrades=1,
-            drain_spec=DrainSpec(enable=True, timeout_second=30),
-            health_gate=SliceHealthGateSpec(
-                enable=True, timeout_second=VALIDATION_TIMEOUT_S
+    def __init__(self, members: Sequence, size: BatterySize) -> None:
+        self.cluster = FakeCluster()
+        self.fleet = _fleet(self.cluster)
+        self.nodes = [self.fleet.gpu_node(name, product)
+                      for name, product in CONTROLLER_POOL]
+        self.driver = DriverDaemonSetSpec(namespace=NAMESPACE, version="1")
+        self.agent = AgentDaemonSetSpec(namespace=NAMESPACE)
+        self.members, self.size = members, size
+        self.batteries: list[float] = []
+
+    def controller(self, **config) -> UpgradeController:
+        """The port's ``UpgradeController`` on its default keys and
+        selector, owning both DaemonSets (``generation_floors`` on, one
+        upgrade at a time, drain on, the agents' gate), with ``config``
+        besides."""
+        controller = UpgradeController(self.cluster, ControllerConfig(
+            namespace=NAMESPACE,
+            policy=TPUUpgradePolicySpec(
+                auto_upgrade=True,
+                max_parallel_upgrades=1,
+                drain_spec=DrainSpec(enable=True, timeout_second=30),
+                health_gate=SliceHealthGateSpec(
+                    enable=True, timeout_second=VALIDATION_TIMEOUT_S
+                ),
             ),
-        ),
-        daemonset_spec=driver,
-        agent_spec=agent,
-        generation_floors=True,
-    ))
-    controller.manager.provider.poll_interval_s = 0.01
-    controller.manager.provider.poll_timeout_s = 5.0
-    keys = controller.keys
+            daemonset_spec=self.driver,
+            agent_spec=self.agent,
+            generation_floors=True,
+            **config,
+        ))
+        controller.manager.provider.poll_interval_s = 0.01
+        controller.manager.provider.poll_timeout_s = 5.0
+        return controller
 
-    def record_revision(revision: int) -> str:
+    def record_revision(self, revision: int) -> str:
         """The DaemonSet controller: a ControllerRevision of the driver
         DaemonSet's current template, named by its hash."""
-        ds = cluster.get_daemon_set(NAMESPACE, driver.name)
+        ds = self.cluster.get_daemon_set(NAMESPACE, self.driver.name)
         rev = ds.metadata.annotations[TEMPLATE_HASH_ANNOTATION][:10]
-        fleet.bump_daemon_set_template(ds, rev, revision)
+        self.fleet.bump_daemon_set_template(ds, rev, revision)
         return rev
 
-    def node_states() -> dict[str, str]:
-        return {n.name: cluster.get_node(n.name, cached=False).labels.get(
-            keys.state_label, "") for n in nodes}
+    def node_states(self) -> dict[str, str]:
+        return {n.name: self.cluster.get_node(n.name, cached=False).labels
+                .get(KEYS.state_label, "") for n in self.nodes}
 
-    batteries: list[float] = []
-
-    def report(node: str) -> None:
+    def report(self, node: str) -> None:
+        """One report from ``node``'s agent, its seconds recorded."""
         t0 = time.monotonic()
-        _run_agent(cluster, node, members, size, _agent_env(cluster, agent))
-        batteries.append(time.monotonic() - t0)
+        _run_agent(self.cluster, node, self.members, self.size,
+                   _agent_env(self.cluster, self.agent))
+        self.batteries.append(time.monotonic() - t0)
 
-    controller.reconcile_once()          # creates both DaemonSets
-    rev1 = record_revision(1)
-    ds = cluster.get_daemon_set(NAMESPACE, driver.name)
-    for node in nodes:
-        fleet.driver_pod(node, ds, rev1)
-    controller.reconcile_once()          # pins the agents to rev1
-    for node in nodes:
-        report(node.name)
-    driver.version = "2"
-    controller.reconcile_once()          # updates the driver's template
-    rev2 = record_revision(2)
-    fleet.auto_recreate_driver_pods(
-        cluster.get_daemon_set(NAMESPACE, driver.name), rev2
-    )
+    def stage(self, controller: UpgradeController) -> list[str]:
+        """The roll's trigger, through ``controller``'s passes: both
+        DaemonSets and the driver pods at the first revision, every
+        agent's first report, then the driver spec's version bumped and
+        the pods recreated at the second on deletion.  The two revisions'
+        names."""
+        controller.reconcile_once()          # creates both DaemonSets
+        rev1 = self.record_revision(1)
+        ds = self.cluster.get_daemon_set(NAMESPACE, self.driver.name)
+        for node in self.nodes:
+            self.fleet.driver_pod(node, ds, rev1)
+        controller.reconcile_once()          # pins the agents to rev1
+        for node in self.nodes:
+            self.report(node.name)
+        self.driver.version = "2"
+        controller.reconcile_once()          # updates the driver's template
+        rev2 = self.record_revision(2)
+        self.fleet.auto_recreate_driver_pods(
+            self.cluster.get_daemon_set(NAMESPACE, self.driver.name), rev2
+        )
+        return [rev1, rev2]
+
+
+def controller_roll(members: Sequence, size: BatterySize = IN_FLIGHT) -> dict:
+    """The port's ``UpgradeController``, on its default keys and
+    selector, rolls :data:`CONTROLLER_POOL` on a ``FakeCluster``
+    (:class:`ControllerRig`), one pass after another.
+
+    Each node's agent reports once before the roll, then whenever its
+    node waits at ``validation-required`` after a pass.  The roll bumps
+    the driver spec's version.  After it, the controller's
+    ``MetricsServer`` (a free loopback port) is scraped over HTTP and the
+    status CLI's ``gather`` read."""
+    rig = ControllerRig(members, size)
+    cluster, nodes = rig.cluster, rig.nodes
+    controller = rig.controller(interval_s=0.0)
+    keys = controller.keys
+    rev1, rev2 = rig.stage(controller)
     t0 = time.monotonic()
     passes = 0
     admitted: list[str] = []
@@ -816,12 +851,12 @@ def controller_roll(members: Sequence, size: BatterySize = IN_FLIGHT) -> dict:
         return (len(admitted) == len(nodes)
                 and set(states.values()) == {"upgrade-done"})
 
-    states = node_states()
+    states = rig.node_states()
     while passes < CONTROLLER_MAX_PASSES and not complete():
         passes += 1
         controller.reconcile_once()
         controller.manager.wait_for_async_work(60.0)
-        states = node_states()
+        states = rig.node_states()
         for name, state in states.items():
             if last.get(name) != state:
                 transitions.append((time.monotonic() - t0, name, state))
@@ -830,7 +865,7 @@ def controller_roll(members: Sequence, size: BatterySize = IN_FLIGHT) -> dict:
                 admitted.append(name)
         for name, state in states.items():
             if state == "validation-required":
-                report(name)
+                rig.report(name)
     wall_s = time.monotonic() - t0
     controller.reconcile_once()          # the metrics see the final states
     server = MetricsServer(controller.registry, port=0)
@@ -860,15 +895,331 @@ def controller_roll(members: Sequence, size: BatterySize = IN_FLIGHT) -> dict:
         "transitions": transitions,
         "node_windows_s": node_windows(transitions),
         "revisions": [rev1, rev2],
-        "agent_env": {k: v for k, v in _agent_env(cluster, agent).items()
+        "agent_env": {k: v for k, v in _agent_env(cluster, rig.agent).items()
                       if k in (DRIVER_NAME_ENV, "DRIVER_REVISION")},
-        "batteries": len(batteries),
-        "battery_s": sum(batteries),
+        "batteries": len(rig.batteries),
+        "battery_s": sum(rig.batteries),
         "fleet_nodes": scraped["fleet_nodes"],
         "nodes_by_state": scraped["nodes_by_state"],
         "status_generations": status.get("fleet", {}).get("generations"),
         "keys": keys.state_label,
     }
+
+
+# The controller's own modes (``UpgradeController.run_forever``), each
+# rolling CONTROLLER_POOL with a resync far too long to help: a roll
+# that completes was driven by watch events alone.
+MODES_RESYNC_S = 120.0
+MODES_DEBOUNCE_S = 0.02
+MODES_SHARDS = 4
+# A mode's roll, wall clock, before it counts as stalled.
+MODES_DEADLINE_S = 60.0
+# The failover mode's election, tests/test_leader.py's fast one: a 0.6 s
+# term, the holder standing down 0.3 s after its last renewal, 0.03 s
+# between rounds.
+MODES_ELECTION = dict(lease_duration_s=0.6, renew_deadline_s=0.3,
+                      retry_period_s=0.03)
+# The failover mode's resync.  A leader-elected watch-mode controller
+# opens its watch streams only once it leads, from a baseline taken when
+# its pump thread next runs: the writes of the epoch's first pass can
+# land before that baseline and wake nothing, and only the next resync
+# moves the roll on (both packages' ``_watch_pump``; ROADMAP).
+MODES_FAILOVER_RESYNC_S = 1.0
+# An agent reports again while its node still waits at
+# validation-required this long after its last report (its period).
+AGENT_PERIOD_S = 1.0
+# The controller's admission order of CONTROLLER_POOL: PCIe, both SXM,
+# NVL (the profiles' order, then the name).
+CONTROLLER_ORDER = ["pool-3", "pool-1", "pool-2", "pool-0"]
+
+
+class RollWatch:
+    """The agents and the observer of one event-driven roll, on a thread
+    of its own.  A Node watch on the rig's cluster records each node's
+    state changes in order and its cordons (``unschedulable`` set), and
+    a node's agent reports when its node enters ``validation-required``,
+    then each :data:`AGENT_PERIOD_S` it still waits there.  With
+    ``controllers`` (leader-elected), every event and every 50 ms also
+    samples the Lease's holder and how many of them believe they lead."""
+
+    def __init__(self, rig: ControllerRig,
+                 controllers: Sequence[UpgradeController] = ()) -> None:
+        self.rig = rig
+        self.controllers = list(controllers)
+        self.admitted: list[str] = []
+        self.transitions: list[tuple[float, str, str]] = []
+        self.cordons: Counter = Counter()
+        self.holders: list[tuple[float, str]] = []
+        self.most_leading = 0
+        self.first_done = threading.Event()
+        self.done = threading.Event()
+        self.done_at: Optional[float] = None
+        self._states = rig.node_states()
+        self._cordoned = {n.name: rig.cluster.get_node(
+            n.name, cached=False).spec.unschedulable for n in rig.nodes}
+        self._reported: dict[str, float] = {}
+        self._stop = threading.Event()
+        self._sub = rig.cluster.watch(["Node"])
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def start(self) -> None:
+        self.t0 = time.monotonic()
+        self._thread.start()
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(60.0)
+        self._sub.close()
+
+    def complete(self) -> bool:
+        """Every node went through the roll and is done."""
+        return (len(self.admitted) == len(self._states)
+                and set(self._states.values()) == {"upgrade-done"})
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            ev = self._sub.get(timeout_s=0.05)
+            if ev is not None and ev.object is not None:
+                self._node(ev.object)
+            self._sample_leaders()
+            self._agents()
+
+    def _node(self, node) -> None:
+        name = node.name
+        if name not in self._states:
+            return
+        state = node.labels.get(KEYS.state_label, "")
+        if state != self._states[name]:
+            self._states[name] = state
+            self.transitions.append((time.monotonic() - self.t0, name, state))
+            self._reported.pop(name, None)
+            if state in ACTIVE_STATES and name not in self.admitted:
+                self.admitted.append(name)
+            if state == "upgrade-done":
+                self.first_done.set()
+            if self.complete() and not self.done.is_set():
+                self.done_at = time.monotonic()
+                self.done.set()
+        if node.spec.unschedulable and not self._cordoned[name]:
+            self.cordons[name] += 1
+        self._cordoned[name] = node.spec.unschedulable
+
+    def _agents(self) -> None:
+        for name, state in self._states.items():
+            if state == "validation-required" and (
+                time.monotonic() - self._reported.get(name, -math.inf)
+                >= AGENT_PERIOD_S
+            ):
+                self.rig.report(name)
+                self._reported[name] = time.monotonic()
+
+    def _sample_leaders(self) -> None:
+        if not self.controllers:
+            return
+        self.most_leading = max(self.most_leading, sum(
+            c.elector.is_leader() for c in self.controllers))
+        try:
+            lease = self.rig.cluster.get_custom_object(
+                LEASE_GROUP, LEASE_VERSION, LEASE_PLURAL, NAMESPACE,
+                CONTROLLER_NAME)
+        except NotFoundError:   # no replica has led yet
+            return
+        holder = lease["spec"].get("holderIdentity") or ""
+        if holder and (not self.holders or self.holders[-1][1] != holder):
+            self.holders.append((time.monotonic() - self.t0, holder))
+
+
+def _count_passes(controller: UpgradeController) -> dict:
+    """Counts ``controller``'s full and dirty passes (a dirty pass that
+    falls back to a full one counts as both) and when the last ended."""
+    count = {"full": 0, "dirty": 0, "last_end": time.monotonic()}
+    for kind, name in (("full", "reconcile_once"),
+                       ("dirty", "reconcile_dirty")):
+        def counted(kind=kind, run=getattr(controller, name)):
+            count[kind] += 1
+            try:
+                return run()
+            finally:
+                count["last_end"] = time.monotonic()
+
+        setattr(controller, name, counted)
+    return count
+
+
+def _idle_tick(controller: UpgradeController, count: dict) -> int:
+    """The pools one dirty tick walks once the roll is done and the
+    controller has gone quiet (its dirty set empty, no pass for 0.2 s)."""
+    sharded = controller._sharded
+    deadline = time.monotonic() + 10.0
+    while time.monotonic() < deadline and (
+        sharded.queue.depth()
+        or time.monotonic() - count["last_end"] < 0.2
+    ):
+        time.sleep(0.02)
+    return sharded.tick(controller.config.policy).pools_walked
+
+
+def _mode_roll(rig: ControllerRig, controllers: Sequence[UpgradeController],
+               crash_leader: bool = False) -> dict:
+    """``controllers``' ``run_forever`` loops roll the rig's staged pool.
+    With two (leader-elected), the first leads before the second comes
+    up; with ``crash_leader``, the leader stops without releasing its
+    Lease once a node is done, and the standby must take over at the
+    term's expiry."""
+    elected = controllers[0].elector is not None
+    watch = RollWatch(rig, controllers if elected else ())
+    counts = [_count_passes(c) for c in controllers]
+    threads = [threading.Thread(target=c.run_forever, daemon=True)
+               for c in controllers]
+    watch.start()
+    deadline = watch.t0 + MODES_DEADLINE_S
+    threads[0].start()
+    for t in threads[1:]:
+        while (not controllers[0].elector.is_leader()
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        t.start()
+    crashed = None
+    if crash_leader and watch.first_done.wait(deadline - time.monotonic()):
+        i = next((i for i, c in enumerate(controllers)
+                  if c.elector.is_leader()), 0)
+        crashed = (controllers[i].config.identity,
+                   time.monotonic() - watch.t0)
+        # A crash: no clean hand-over of the Lease.
+        controllers[i].elector.release = lambda: None
+        controllers[i].stop()
+        threads[i].join(30.0)
+    watch.done.wait(max(0.0, deadline - time.monotonic()))
+    record = {
+        "complete": watch.complete(),
+        "wall_s": (watch.done_at or time.monotonic()) - watch.t0,
+        "admitted": list(watch.admitted),
+        "transitions": list(watch.transitions),
+        "node_windows_s": node_windows(watch.transitions),
+        "cordons": dict(watch.cordons),
+    }
+    if controllers[0]._sharded is not None and watch.complete():
+        record["idle_tick_pools_walked"] = _idle_tick(controllers[0],
+                                                      counts[0])
+    for c in controllers:
+        c.stop()
+    for t in threads:
+        t.join(30.0)
+    watch.close()
+    record["final_states"] = rig.node_states()
+    record["passes"] = {c.config.identity or "controller":
+                        {k: n[k] for k in ("full", "dirty")}
+                        for c, n in zip(controllers, counts)}
+    if elected:
+        record["lease_holders"] = watch.holders
+        record["most_leading_at_once"] = watch.most_leading
+        record["crashed"] = crashed
+    return record
+
+
+def controller_modes(members: Sequence, size: BatterySize = IN_FLIGHT) -> dict:
+    """The controller's own modes roll :data:`CONTROLLER_POOL`, each on a
+    fresh :class:`ControllerRig` staged by a polling controller, every
+    validation gated by the agents' batteries over ``members`` at
+    ``size``:
+
+    - ``dry_run``: a watch-mode controller's ``dry_run()`` plan, and the
+      writes it made (0), before its roll (``watch``);
+    - ``watch``: ``watch=True``, resync :data:`MODES_RESYNC_S`;
+    - ``sharded``: also ``sharded=True`` over :data:`MODES_SHARDS`
+      shards, then one idle dirty tick;
+    - ``failover``: two leader-elected watch-mode controllers on
+      :data:`MODES_ELECTION`, resync :data:`MODES_FAILOVER_RESYNC_S`;
+      the leader crashes once a node is done.
+
+    Each mode records its roll (``complete``, ``final_states``,
+    ``admitted``, ``passes``, ``wall_s``) and its agents' batteries and
+    seconds."""
+    watched = dict(watch=True, interval_s=MODES_RESYNC_S,
+                   watch_debounce_s=MODES_DEBOUNCE_S)
+    modes: dict[str, dict] = {}
+    fallbacks = battery_stats()["fallbacks"]
+
+    def staged() -> ControllerRig:
+        rig = ControllerRig(members, size)
+        rig.stage(rig.controller(interval_s=0.0))
+        return rig
+
+    def batteries(rig: ControllerRig, record: dict) -> dict:
+        record.update(batteries=len(rig.batteries),
+                      battery_s=sum(rig.batteries))
+        return record
+
+    rig = staged()
+    controller = rig.controller(**watched)
+    writes = _writes(rig.cluster)
+    plan = controller.dry_run()
+    writes = _writes(rig.cluster) - writes
+    nodes = {g.group_id: g.nodes for g in plan.groups}
+    modes["dry_run"] = {
+        "writes": writes,
+        "plan_order": [n for wave in plan.waves for g in wave.group_ids
+                       for n in nodes[g]],
+        "plan_waves": len(plan.waves),
+    }
+    log("controller modes: watch")
+    modes["watch"] = batteries(rig, _mode_roll(rig, [controller]))
+    log("controller modes: sharded")
+    rig = staged()
+    modes["sharded"] = batteries(rig, _mode_roll(rig, [rig.controller(
+        sharded=True, reconcile_shards=MODES_SHARDS, **watched)]))
+    log("controller modes: failover")
+    rig = staged()
+    pair = []
+    for identity in ("replica-a", "replica-b"):
+        c = rig.controller(leader_elect=True, identity=identity,
+                           publish_events=False, **dict(
+                               watched, interval_s=MODES_FAILOVER_RESYNC_S))
+        c.elector = LeaderElector(
+            rig.cluster, identity=identity, namespace=NAMESPACE,
+            name=c.config.lease_name, **MODES_ELECTION)
+        pair.append(c)
+    modes["failover"] = batteries(rig, _mode_roll(rig, pair,
+                                                  crash_leader=True))
+    modes["fallbacks"] = battery_stats()["fallbacks"] - fallbacks
+    return modes
+
+
+def controller_modes_pins(r: dict) -> dict[str, bool]:
+    """Each pin of :func:`controller_modes`' record, by name: every roll
+    complete and all done in :data:`CONTROLLER_ORDER`, each node cordoned
+    once; the sharded roll on dirty passes and idle after; the standby
+    completing the crashed leader's roll with one leader at a time; the
+    dry run's plan in the order admitted, with no write; no fused
+    battery fell back."""
+    done = {name: "upgrade-done" for name, _ in CONTROLLER_POOL}
+    pins = {}
+    for mode in ("watch", "sharded", "failover"):
+        m = r[mode]
+        pins[f"{mode}_complete"] = (m["complete"]
+                                    and m["final_states"] == done)
+        pins[f"{mode}_order"] = m["admitted"] == CONTROLLER_ORDER
+        pins[f"{mode}_cordoned_once"] = m["cordons"] == {
+            name: 1 for name in done}
+        pins[f"{mode}_passes"] = all(
+            p["full"] > 0 for p in m["passes"].values())
+    sharded = r["sharded"]
+    pins["sharded_dirty_passes"] = all(
+        p["dirty"] > 0 for p in sharded["passes"].values())
+    pins["sharded_idle_walks_none"] = (
+        sharded.get("idle_tick_pools_walked") == 0)
+    failover = r["failover"]
+    crashed = (failover["crashed"] or [None])[0]
+    holders = [h for _, h in failover["lease_holders"]]
+    pins["failover_crashed_leader"] = crashed == "replica-a"
+    pins["failover_standby_took_over"] = holders == ["replica-a",
+                                                     "replica-b"]
+    pins["failover_one_leader"] = failover["most_leading_at_once"] == 1
+    pins["dry_run_no_writes"] = r["dry_run"]["writes"] == 0
+    pins["dry_run_order"] = (r["dry_run"]["plan_order"]
+                             == r["watch"]["admitted"] == CONTROLLER_ORDER)
+    pins["no_fused_fallback"] = r["fallbacks"] == 0
+    return pins
 
 
 # The elastic roll (the JAX package's tools/bench_guard.py:758-906): each

@@ -387,20 +387,22 @@ def _idle_ticks(sharded: ShardedReconciler, policy, ticks: int):
 
 
 def _roll_to_done(mgr, cluster: FakeCluster, keys: UpgradeKeys, names,
-                  policy, what: str, on_tick=None) -> int:
+                  policy, what: str, on_tick=None,
+                  clock=time.monotonic) -> int:
     """Tick ``mgr`` until every node of ``names`` is done (120 s at
-    most); ``on_tick(seconds)`` after each tick.  Returns the ticks."""
+    most); ``on_tick(seconds)`` after each tick, read on ``clock``.
+    Returns the ticks."""
     ticks = 0
     deadline = time.monotonic() + 120.0
     while time.monotonic() < deadline:
-        t0 = time.monotonic()
+        t0 = clock()
         state = mgr.build_state(NAMESPACE, DRIVER_LABELS, policy)
         mgr.apply_state(state, policy)
         if not mgr.wait_for_async_work(30.0):
             raise RuntimeError("async upgrade work did not drain")
         ticks += 1
         if on_tick is not None:
-            on_tick(time.monotonic() - t0)
+            on_tick(clock() - t0)
         if all(cluster.get_node(n, cached=False).labels.get(
                 keys.state_label, "") == UpgradeState.DONE.value
                for n in names):
@@ -806,10 +808,10 @@ def _median_leg(legs: list[dict]) -> dict:
 
 
 def _tracing_roll(enable_tracing: bool, slices: int, hosts: int,
-                  tpu_slices: bool):
+                  tpu_slices: bool, clock=time.monotonic):
     """A fleet of ``slices * hosts`` nodes rolled to done with the
     recorder off or on, then two settling ticks; returns the manager and
-    each tick's seconds."""
+    each tick's seconds on ``clock``."""
     # Drain off keeps the ticks CPU-bound (no async drain polls).
     policy = _policy(drain=False)
     keys = UpgradeKeys()
@@ -828,23 +830,25 @@ def _tracing_roll(enable_tracing: bool, slices: int, hosts: int,
         enable_tracing=enable_tracing)
     durations: list[float] = []
     _roll_to_done(mgr, cluster, keys, names, policy, "traced roll",
-                  on_tick=durations.append)
+                  on_tick=durations.append, clock=clock)
     # Settling ticks: the closing maybe_end_roll runs on the apply pass
     # after the last async state flip lands.
     for _ in range(2):
-        t0 = time.monotonic()
+        t0 = clock()
         state = mgr.build_state(NAMESPACE, DRIVER_LABELS, policy)
         mgr.apply_state(state, policy)
         mgr.wait_for_async_work(10.0)
-        durations.append(time.monotonic() - t0)
+        durations.append(clock() - t0)
     return mgr, durations
 
 
 def tracing_leg(enable_tracing: bool, slices: int = TRACING_N_SLICES,
                 hosts: int = TRACING_HOSTS_PER_SLICE, storm: int = 0,
-                tpu_slices: bool = False) -> dict:
+                tpu_slices: bool = False, cpu_ticks: bool = False) -> dict:
     """One leg of :func:`measure_tracing`: the active roll with the
-    recorder off or on, each tick's seconds in ``ticks``.  A traced leg
+    recorder off or on, each tick's seconds in ``ticks``: wall seconds,
+    or with ``cpu_ticks`` the CPU seconds of the leg's process (every
+    thread's, none spent waiting for a core).  A traced leg
     also reads its completed trace (the span tree, the critical-path
     buckets) and, given ``storm`` triggers, runs the black-box trigger
     storm against the spool cap with the trace as a snapshot."""
@@ -857,8 +861,9 @@ def tracing_leg(enable_tracing: bool, slices: int = TRACING_N_SLICES,
     gc.collect()
     gc.freeze()
     try:
-        mgr, durations = _tracing_roll(enable_tracing, slices, hosts,
-                                       tpu_slices)
+        mgr, durations = _tracing_roll(
+            enable_tracing, slices, hosts, tpu_slices,
+            time.process_time if cpu_ticks else time.monotonic)
     finally:
         gc.unfreeze()
     out: dict = {"ticks": durations}
@@ -923,10 +928,14 @@ def measure_tracing(
     storm: int = TRACING_STORM_TRIGGERS,
     reps: int = TRACING_TIMING_REPS,
     tpu_slices: bool = False,
+    cpu_ticks: bool = False,
 ) -> dict:
     """The recorder's cost on an active roll's p99 tick, the traced
     roll's span tree and attribution, an idle traced sharded fleet, and
-    a black-box trigger storm against the spool cap."""
+    a black-box trigger storm against the spool cap.  The ticks are wall
+    seconds; with ``cpu_ticks`` each leg's process CPU seconds
+    (:func:`tracing_leg`), for a host whose other load takes the leg's
+    cores for longer than the pin's grace."""
     # Repetitions, the median p99 of each leg (:func:`_median_leg`),
     # every leg (:func:`tracing_leg`) in a child interpreter of its own
     # so that every leg starts alike, and a rep's two legs at once so
@@ -945,7 +954,7 @@ def measure_tracing(
             enable_tracing: _start_child(["--tracing-leg", json.dumps(dict(
                 enable_tracing=enable_tracing, slices=slices, hosts=hosts,
                 storm=storm if enable_tracing and rep == reps - 1 else 0,
-                tpu_slices=tpu_slices))])
+                tpu_slices=tpu_slices, cpu_ticks=cpu_ticks))])
             for enable_tracing in (False, True)
         }
         try:
@@ -986,6 +995,7 @@ def measure_tracing(
         "nodes": slices * hosts,
         "reps": reps,
         "leg_processes": 2 * reps,
+        "tick_clock": "process cpu" if cpu_ticks else "wall",
         "roll_ticks_off": len(ticks_off),
         "roll_ticks_on": len(ticks_on),
         "p99_tick_off_s": p99_off,

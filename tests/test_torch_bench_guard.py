@@ -51,6 +51,11 @@ SIZES = {
 }
 MULTI = dict(slices=4, hosts=2)
 TRACING_REPS = T.TRACING_TIMING_REPS
+# The tracing pin here reads each leg's process CPU seconds a tick, not
+# the wall seconds the card's run reads: at this size a leg's p99 is its
+# slowest of 31 ticks of about 3 ms, and beside the other test workers a
+# tick can wait 10-40 ms for a core, in most legs of one side at once.
+CPU_TICKS = dict(cpu_ticks=True)
 # The counts each stage's records must share (the spool's bytes hold
 # timestamps, whose digits vary from run to run).
 COUNTS = {
@@ -113,7 +118,7 @@ def _port(stage: str, tpu_slices: bool) -> dict:
         return T.measure_packed_admission(**SIZES[stage])
     kw = dict(SIZES[stage], tpu_slices=tpu_slices)
     if stage == "measure_tracing":
-        kw["reps"] = TRACING_REPS
+        kw.update(reps=TRACING_REPS, **CPU_TICKS)
     return getattr(T, stage)(**kw)
 
 
@@ -172,12 +177,14 @@ def test_both_tracing_legs_run_beside_the_same_heap(monkeypatch):
         return procs[-1]
 
     monkeypatch.setattr(T.subprocess, "Popen", recording)
-    r = T.measure_tracing(**SIZES["measure_tracing"], reps=3)
+    r = T.measure_tracing(**SIZES["measure_tracing"], reps=3, **CPU_TICKS)
     assert [leg["enable_tracing"] for leg in legs] == [False, True] * 3
     # A rep's traced leg starts while its untraced leg runs.
     assert other_running[1::2] == [True] * 3
     storm = SIZES["measure_tracing"]["storm"]
     assert [leg["storm"] for leg in legs] == [0] * 5 + [storm]
+    assert all(leg["cpu_ticks"] for leg in legs)
+    assert r["tick_clock"] == "process cpu"
     assert r["leg_processes"] == 6
     assert len(r["leg_p99_off_s"]) == len(r["leg_p99_on_s"]) == 3
     assert r["p99_tick_off_s"] == sorted(r["leg_p99_off_s"])[1]

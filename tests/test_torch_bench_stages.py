@@ -8,7 +8,9 @@ different rings, and the pair's downtime covers both ring-a windows; the
 failure roll reaches every pin of the bench's; the heterogeneous stage's
 pins are those of the JAX package's own ``measure_heterogeneous``; the
 cross-ring world of two worker processes on the CPU passes, and a worker
-that dies, prints garbage or hangs is recorded, not raised; the bench's
+that dies, prints garbage or hangs is recorded, not raised; the
+controller's own modes hold phase 17's pins, and each broken pin is
+named; the bench's
 line with every stage's pins (the controller roll's and each guard
 stage's among them) stays within 2 KB and drops none.
 """
@@ -219,6 +221,73 @@ def test_a_failed_worker_is_recorded_not_raised(source, timeout_s, error):
 @pytest.fixture(scope="module")
 def controller(_one_torch_thread):
     return bench.controller_roll(MEMBERS, SMALL)
+
+
+@pytest.fixture(scope="module")
+def modes(_one_torch_thread):
+    return bench.controller_modes(MEMBERS, SMALL)
+
+
+def test_the_controller_modes_hold_phase_17s_pins(modes):
+    """``bench.controller_modes`` on the CPU members holds every pin
+    ``chip_smoke.py`` phase 17 requires: each mode's roll complete in
+    the generations' order, each node cordoned once, the sharded roll on
+    dirty passes and idle after, the standby finishing the crashed
+    leader's roll, the dry run's plan that order with no write, no fused
+    fallback."""
+    pins = bench.controller_modes_pins(modes)
+    assert [name for name, ok in pins.items() if not ok] == [], {
+        mode: modes[mode]["admitted"]
+        for mode in ("watch", "sharded", "failover")}
+    assert set(pins) == {
+        f"{mode}_{pin}" for mode in ("watch", "sharded", "failover")
+        for pin in ("complete", "order", "cordoned_once", "passes")
+    } | {"sharded_dirty_passes", "sharded_idle_walks_none",
+         "failover_crashed_leader", "failover_standby_took_over",
+         "failover_one_leader", "dry_run_no_writes", "dry_run_order",
+         "no_fused_fallback"}
+    assert modes["dry_run"]["plan_order"] == bench.CONTROLLER_ORDER
+    assert modes["dry_run"]["plan_waves"] == 4
+    for mode in ("watch", "sharded", "failover"):
+        # Each agent's first report, then one a validation at least.
+        assert modes[mode]["batteries"] >= 8
+        assert 0 < modes[mode]["wall_s"] < bench.MODES_DEADLINE_S
+    failover = modes["failover"]
+    crashed_at = failover["crashed"][1]
+    (_, leader), (took_over_at, standby) = failover["lease_holders"]
+    assert (leader, standby) == ("replica-a", "replica-b")
+    # The standby waits out the crashed leader's term.
+    assert took_over_at - crashed_at >= (
+        bench.MODES_ELECTION["lease_duration_s"]
+        - bench.MODES_ELECTION["renew_deadline_s"])
+    assert failover["passes"]["replica-b"]["full"] > 0
+
+
+@pytest.mark.parametrize("broken", [
+    ("watch", "admitted", ["pool-1", "pool-3", "pool-2", "pool-0"]),
+    ("sharded", "idle_tick_pools_walked", 1),
+    ("failover", "most_leading_at_once", 2),
+    ("failover", "cordons",
+     {"pool-3": 1, "pool-1": 2, "pool-2": 1, "pool-0": 1}),
+    ("dry_run", "writes", 1),
+])
+def test_each_broken_mode_pin_is_named(modes, broken):
+    """Breaking one reading of the record breaks exactly its pins (of
+    those the run held)."""
+    mode, key, value = broken
+    record = {k: dict(v) if isinstance(v, dict) else v
+              for k, v in modes.items()}
+    record[mode][key] = value
+    held = bench.controller_modes_pins(modes)
+    pins = bench.controller_modes_pins(record)
+    assert [name for name, ok in pins.items() if held[name] and not ok] == {
+        # The dry run's plan is held to the watch roll's admissions.
+        "admitted": ["watch_order", "dry_run_order"],
+        "idle_tick_pools_walked": ["sharded_idle_walks_none"],
+        "most_leading_at_once": ["failover_one_leader"],
+        "cordons": ["failover_cordoned_once"],
+        "writes": ["dry_run_no_writes"],
+    }[key]
 
 
 def test_the_line_carries_every_stage_pin(dcn, failinj, heterogeneous,

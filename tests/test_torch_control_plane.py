@@ -13,6 +13,7 @@ slice) and must walk every node through the same states.
 from __future__ import annotations
 
 import ast
+import linecache
 import re
 import sys
 import types
@@ -593,16 +594,21 @@ def test_every_reference_module_has_its_counterpart():
 
 
 def port_module(test_file: str,
-                modules: Optional[dict] = None) -> types.ModuleType:
+                modules: Optional[dict] = None,
+                substitutions: tuple[tuple[str, str], ...] = (),
+                ) -> types.ModuleType:
     """The reference's ``tests/<test_file>`` against the port: its source
-    with the package prefix rewritten and ``tests.fixtures`` replaced by
-    the port's (``ENGINES``), executed as a module of its own.
-    ``modules`` maps another test module the file imports from
-    (``"tests.test_chaos"``) to the port module that replaces it."""
+    with the package prefix rewritten and ``tests.fixtures`` (if the file
+    imports it) replaced by the port's (``ENGINES``), executed as a
+    module of its own.  ``modules`` maps another test module the file
+    imports from (``"tests.test_chaos"``) to the port module that
+    replaces it.  ``substitutions`` lists (reference, port) snippets of
+    the rewritten source, each found exactly once, as ``OWN_COPIES`` does
+    for a module: a test reads the port controller's keys this way."""
     fixtures = ENGINES["port"][3]
     sys.modules.setdefault(fixtures.__name__, fixtures)
     source = PREFIX.sub(_P, (ROOT / "tests" / test_file).read_text())
-    assert source.count("from tests.fixtures import") == 1, test_file
+    assert source.count("from tests.fixtures import") <= 1, test_file
     source = source.replace(
         "from tests.fixtures import", f"from {fixtures.__name__} import"
     )
@@ -610,11 +616,29 @@ def port_module(test_file: str,
         assert f"from {name} import" in source, (test_file, name)
         source = source.replace(f"from {name} import",
                                 f"from {module.__name__} import")
+    for ref_snippet, port_snippet in substitutions:
+        assert source.count(ref_snippet) == 1, (test_file, ref_snippet)
+        source = source.replace(ref_snippet, port_snippet)
     name = f"_port_{Path(test_file).stem}"
     module = types.ModuleType(name)
+    module.__file__ = str(ROOT / "tests" / test_file)
     sys.modules[name] = module
-    exec(compile(source, f"{test_file}[port]", "exec"), module.__dict__)
+    filename = f"{Path(test_file).name}[port]"
+    # A failure's traceback shows the lines the port ran.
+    linecache.cache[filename] = (len(source), None,
+                                 source.splitlines(True), filename)
+    exec(compile(source, filename, "exec"), module.__dict__)
     return module
+
+
+def port_keys(anchor: str) -> tuple[str, str]:
+    """The ``port_module`` substitution that rebinds a reference test's
+    ``UpgradeKeys`` to the port's ``keys.driver_keys`` just after
+    ``anchor`` (a line of the rewritten source): the same driver name on
+    the NVIDIA domain, the keys the port's ``UpgradeController`` writes.
+    The controller's defaults stay the GPU operator's."""
+    return anchor, (anchor
+                    + f"from {_P}.keys import driver_keys as UpgradeKeys\n")
 
 
 def port_tests(module: types.ModuleType) -> dict:
@@ -622,6 +646,57 @@ def port_tests(module: types.ModuleType) -> dict:
     ``Test*`` classes), for a port test file to take into its globals."""
     return {k: v for k, v in vars(module).items()
             if k.startswith(("test_", "Test"))}
+
+
+_SOURCE = """from tests.fixtures import NAMESPACE
+from k8s_operator_libs_tpu.upgrade import UpgradeKeys
+
+KEYS = UpgradeKeys()
+"""
+
+
+@pytest.mark.parametrize("source, substitutions, refused", [
+    (_SOURCE, (), False),
+    # No fixtures import (tests/test_leader.py has none).
+    (_SOURCE.split("\n", 1)[1], (), False),
+    (_SOURCE + "from tests.fixtures import DRIVER_LABELS\n", (), True),
+    (_SOURCE, (("KEYS = UpgradeKeys()", "KEYS = None"),), False),
+    # A substitution is found exactly once, or refused.
+    (_SOURCE, (("KEYS = UpgradeKey()", "KEYS = None"),), True),
+    (_SOURCE + "KEYS = UpgradeKeys()\n",
+     (("KEYS = UpgradeKeys()", "KEYS = None"),), True),
+], ids=["one_fixtures_import", "none", "two_refused", "substituted",
+        "substitution_missing", "substitution_twice"])
+def test_port_module_takes_a_file_and_its_substitutions(
+        tmp_path, source, substitutions, refused):
+    test_file = tmp_path / "test_example_port_module.py"
+    test_file.write_text(source)
+    if refused:
+        with pytest.raises(AssertionError):
+            port_module(str(test_file), substitutions=substitutions)
+        return
+    module = port_module(str(test_file), substitutions=substitutions)
+    assert module.UpgradeKeys is tup.UpgradeKeys
+    assert module.KEYS == (None if substitutions else tup.UpgradeKeys())
+
+
+def test_port_keys_gives_a_test_the_controller_s_keys(tmp_path):
+    """``port_keys`` rebinds ``UpgradeKeys`` after its anchor: the test
+    reads the keys the port's controller writes, its driver name kept."""
+    from k8s_operator_libs_tpu_torch.controller import (
+        ControllerConfig,
+        UpgradeController,
+    )
+    from k8s_operator_libs_tpu_torch.keys import driver_keys
+
+    test_file = tmp_path / "test_example_port_keys.py"
+    test_file.write_text(_SOURCE + 'OTHER = UpgradeKeys(driver_name="x")\n')
+    module = port_module(str(test_file), substitutions=(port_keys(
+        f"from {_P}.upgrade import UpgradeKeys\n"),))
+    controller = UpgradeController(tk8s.FakeCluster(), ControllerConfig())
+    assert module.KEYS == controller.keys == driver_keys()
+    assert module.KEYS.state_label == "nvidia.com/gpu-driver-upgrade-state"
+    assert module.OTHER == driver_keys("x")
 
 
 # -- both engines on the same fleets ----------------------------------------
