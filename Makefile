@@ -169,3 +169,17 @@ docker-%: .build-image
 		-v $(PWD):/workspace -w /workspace \
 		--user $$(id -u):$$(id -g) \
 		$(BUILDIMAGE) make $(*)
+
+# -- the PyTorch/CUDA port's image --------------------------------------------
+
+# Runtime image of k8s_operator_libs_tpu_torch, its CUDA kernels prebuilt
+# in the image's build stage; the port's deploy/controller.yaml and its
+# DaemonSets pull $(TORCH_IMAGE):$(TAG) (keys.py OPERATOR_IMAGE).
+TORCH_IMAGE ?= tpu-operator-libs-torch
+
+.PHONY: docker-build-torch
+
+docker-build-torch:
+	$(DOCKER) build --progress=plain \
+		--tag $(TORCH_IMAGE):$(TAG) \
+		-f docker/Dockerfile.torch .

@@ -193,7 +193,21 @@ Phases:
    stops without releasing its Lease once a node is done and whose
    standby takes the Lease and completes the roll, one leader at a
    time.  Each admits PCIe, both SXM, then NVL, cordons each node once,
-   and prints its wall, passes and batteries.
+   and prints its wall, passes and batteries;
+18. the installed port: the package laid out as its wheel installs it
+   (its ``.py`` files and the kernels' CUDA sources that
+   ``pyproject.toml`` ships) in a read-only directory outside the
+   checkout; a child process whose ``PYTHONPATH`` is that copy alone
+   runs the build entry (``python -m
+   k8s_operator_libs_tpu_torch.kernels.build``) into a fresh kernel
+   directory, and a second one, with no ``nvcc`` reachable, runs one
+   agent battery as the agent container does
+   (``HealthAgent(...).run_once()`` on a ``FakeCluster`` node, the deep
+   probe on, over 8 members of the card, at production size): its report
+   must pass every check, K1-K5 launch with no fused fallback, every
+   module and the library come from the copy and the kernel directory,
+   and the copy stay byte for byte as it was.  The build's and the
+   battery's seconds and the child's launches are printed.
 
 Kernel launch counts are zeroed just before each path of phases 4-17
 (unfused, fused cold, fused warm, agent, local prober, the collective
@@ -201,15 +215,16 @@ paths, the ring paths, the battery with the deep flag, the canary, the
 sharded and elastic canaries, the unfused agent of the labelled node,
 the network-path checks, the roll, the controller's roll, both elastic
 rolls, the DCN and failure-injection rolls, the guard's battery stage,
-the controller's modes)
+the controller's modes; phase 18's battery, in its child)
 and read just after it: each
 path names the kernels it must launch (K1 and K2 on the battery paths,
 K1's verifying pass as well on the fused ones, K3 on the ring
 paths, K4 and K5 on the all-reduce, sharded, 8-member network, every
 roll and both elastic roll paths, K4 on the ring shift's: 2 x 8 on the
 ring probe's), and no path
-may have fallen back from the fused battery.  The cross-ring workers are
-processes of their own: each counts its launches and prints them.  K4's launches are also split by
+may have fallen back from the fused battery.  The cross-ring workers and
+phase 18's battery are processes of their own: each counts its launches
+and prints them.  K4's launches are also split by
 shape (k, len), from the plans' rounds.  A child process that fails or outlives its time fails
 the run.
 Any failure exits non-zero and prints no result; so does a machine
@@ -588,6 +603,215 @@ def turn(reps: int) -> dict:
             lambda: K.ring_shift(members), 200)
     out.update(ici_readings(reps))
     return out
+
+
+# -- phase 18: the installed port -------------------------------------------
+PORT_PACKAGE = "k8s_operator_libs_tpu_torch"
+INSTALLED_CHILD_TIMEOUT_S = 600
+INSTALLED_NODE = "gpu-node-installed"
+# The agent's battery in the installed copy, one run as the agent
+# container runs it: ``HealthAgent(...).run_once()`` publishing to a
+# ``FakeCluster`` node, the deep probe on, over 8 members of the card, at
+# production size; the kernel counts zeroed just before it and read just
+# after.  ``build._nvcc()`` must raise: a rebuild could not run.  Prints
+# one JSON line.
+INSTALLED_BATTERY = """
+import json, sys, time
+t0 = time.perf_counter()
+import torch
+from k8s_operator_libs_tpu_torch import kernels as K
+from k8s_operator_libs_tpu_torch.bench_fleet import GpuFleet
+from k8s_operator_libs_tpu_torch.health import fused
+from k8s_operator_libs_tpu_torch.health.agent import HealthAgent
+from k8s_operator_libs_tpu_torch.k8s import FakeCluster
+from k8s_operator_libs_tpu_torch.kernels import build
+from k8s_operator_libs_tpu_torch.keys import driver_keys
+
+try:
+    nvcc = build._nvcc()
+except RuntimeError as e:
+    nvcc = "raises: " + str(e)
+node, members = sys.argv[1], [torch.device("cuda", 0)] * int(sys.argv[2])
+keys = driver_keys()
+cluster = FakeCluster()
+GpuFleet(cluster, keys).gpu_node(node)
+agent = HealthAgent(cluster, node, keys, driver_revision="rev-installed",
+                    devices=members, deep=True, matmul_n=int(sys.argv[3]),
+                    hbm_mib=int(sys.argv[4]))
+K.reset_launch_counts()
+t1 = time.perf_counter()
+agent.run_once()
+torch.cuda.synchronize()
+battery_s = time.perf_counter() - t1
+counts = K.launch_counts()
+counts["block_attention_merge_"] = K.block_attention_merge_.launches
+print(json.dumps({
+    "launches": counts,
+    "battery_s": battery_s,
+    "process_s": time.perf_counter() - t0,
+    "library": build._LIB._name,
+    "library_load_s": build.last_build_s,
+    "nvcc": nvcc,
+    "fallbacks": fused.battery_stats()["fallbacks"],
+    "report": cluster.get_node(node).annotations[
+        keys.health_report_annotation],
+    "modules": {m: getattr(mod, "__file__", None)
+                for m, mod in list(sys.modules.items())
+                if m.split(".")[0] == "k8s_operator_libs_tpu_torch"},
+}))
+"""
+
+
+def lay_out_install(site: Path) -> None:
+    """Copy the port into ``site`` as its wheel installs it: the
+    package's ``.py`` files and the package data ``pyproject.toml``
+    names (the kernels' CUDA sources), and nothing else."""
+    import tomllib
+
+    pyproject = tomllib.loads((HERE / "pyproject.toml").read_text())
+    package = HERE / PORT_PACKAGE
+    files = [p for p in package.rglob("*.py") if "__pycache__" not in p.parts]
+    for name, globs in pyproject["tool"]["setuptools"]["package-data"].items():
+        where = HERE.joinpath(*name.split("."))
+        files += [p for g in globs for p in where.glob(g)]
+    for src in files:
+        dst = site / src.relative_to(HERE)
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        dst.write_bytes(src.read_bytes())
+
+
+def set_read_only(top: Path, read_only: bool) -> None:
+    for path in [top, *top.rglob("*")]:
+        mode = path.stat().st_mode
+        path.chmod(mode & ~0o222 if read_only else mode | 0o200)
+
+
+def tree_digest(top: Path) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for path in sorted(top.rglob("*")):
+        h.update(str(path.relative_to(top)).encode() + b"\0")
+        if path.is_file():
+            h.update(path.read_bytes())
+    return h.hexdigest()
+
+
+def run_child(cmd: list[str], cwd: Path, env: dict, what: str
+              ) -> tuple[str, float]:
+    """Run a child to its end within ``INSTALLED_CHILD_TIMEOUT_S``;
+    returns its standard output and seconds, or fails the run."""
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True,
+                              text=True, timeout=INSTALLED_CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        require(False, f"{what} outlived {INSTALLED_CHILD_TIMEOUT_S} s")
+    seconds = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f"{what} exited {proc.returncode}:\n{proc.stdout[-4000:]}"
+            f"\n{proc.stderr[-4000:]}")
+    return proc.stdout, seconds
+
+
+def installed_port(card: str, members: int = 8, matmul_n: int = 4096,
+                   hbm_mib: int = 1024) -> dict:
+    """Phase 18: the port run from an installed copy, not this checkout.
+
+    The package is laid out as its wheel installs it in a read-only
+    temporary directory.  A child (the working directory and
+    ``PYTHONPATH`` that copy's only) runs the build entry into a fresh
+    kernel directory; a second child, with no ``nvcc`` on ``PATH`` and
+    ``CUDA_HOME`` naming an empty directory (unset, the lookup would take
+    the toolkit's default location), runs one agent battery with the deep
+    probe over ``members`` members of the card.  The report must pass
+    every check, every module come from the copy, K1-K5 launch with no
+    fused fallback, the library be the one the build entry made, and the
+    copy stay byte for byte as it was."""
+    import shutil
+    import tempfile
+
+    from k8s_operator_libs_tpu_torch.health.report import HealthReport
+    from k8s_operator_libs_tpu_torch.kernels import build
+
+    top = Path(tempfile.mkdtemp(prefix="installed-port-"))
+    site, kdir, empty = top / "site", top / "kernels", top / "no-cuda"
+    try:
+        lay_out_install(site)
+        empty.mkdir()
+        set_read_only(site, True)
+        before = tree_digest(site)
+        base = {k: v for k, v in os.environ.items()
+                if k not in ("PYTHONPATH", "CUDA_HOME", "CUDA_PATH")}
+        base.update({"PYTHONPATH": str(site), build.KERNEL_DIR_ENV: str(kdir),
+                     "PYTHONDONTWRITEBYTECODE": "1"})
+        out, build_s = run_child([sys.executable, "-m", build.ENTRY], top,
+                                 base, "the build entry")
+        want = kdir / f"libport_kernels-{build._digest()}.so"
+        require(out.split()[0] == str(want) and want.is_file(),
+                f"the build entry made {out.strip()}, not {want}")
+        print(f"[installed] the build entry compiled {want.name} into a "
+              f"fresh kernel directory in {build_s:.2f} s (child, "
+              f"interpreter start included): {out.strip()}", flush=True)
+
+        env = dict(base)
+        env["PATH"] = os.pathsep.join(
+            d for d in env.get("PATH", "").split(os.pathsep)
+            if d and not (Path(d) / "nvcc").exists())
+        env["CUDA_HOME"] = str(empty)
+        out, child_s = run_child(
+            [sys.executable, "-c", INSTALLED_BATTERY, INSTALLED_NODE,
+             str(members), str(matmul_n), str(hbm_mib)],
+            top, env, "the installed battery")
+        rec = json.loads(out.strip().splitlines()[-1])
+        counts = rec["launches"]
+        print(f"[launches] installed port, agent battery with the deep "
+              f"probe over {members} members (child): "
+              + ", ".join(f"{k} {n}" for k, n in counts.items()), flush=True)
+        print(f"[installed] battery {rec['battery_s']:.3f} s, library loaded "
+              f"in {rec['library_load_s']:.3f} s, child {child_s:.2f} s "
+              f"(in-process {rec['process_s']:.2f} s) on {card}", flush=True)
+        require(rec["nvcc"].startswith("raises: "),
+                f"nvcc reachable in the installed child: {rec['nvcc']}")
+        require(rec["library"] == str(want),
+                f"the child loaded {rec['library']}, not {want}")
+        strays = {m: f for m, f in rec["modules"].items()
+                  if f is not None and site not in Path(f).parents}
+        require(not strays and f"{PORT_PACKAGE}.kernels.build"
+                in rec["modules"],
+                f"modules not from the installed copy: {strays}")
+        report = HealthReport.from_json(rec["report"])
+        bad = [f"{c.name}: {c.detail}" for c in report.checks if not c.ok]
+        require(report.healthy and not bad and report.node_name
+                == INSTALLED_NODE, f"installed battery's report: {bad}")
+        names = [c.name for c in report.checks]
+        require("ici_ring_attention" in names,
+                f"no deep probe in the installed report: {names}")
+        for c in report.checks:
+            if c.name in ("mxu_matmul", "hbm_bandwidth", "ici_allreduce",
+                          "ici_ring"):
+                require(c.metrics.get("fused") == 1.0,
+                        f"installed battery's {c.name} is not fused")
+        require(rec["fallbacks"] == 0,
+                f"installed battery fell back {rec['fallbacks']} times")
+        for kname in ("stream_increment_", "stream_increment_verify_",
+                      "verify_stats", "block_attention", "peer_reduce",
+                      "peer_gather"):
+            require(counts.get(kname, 0) > 0,
+                    f"{kname} was not launched by the installed battery")
+        require(tree_digest(site) == before,
+                "the installed copy changed under its battery")
+        require(sorted(p.name for p in kdir.iterdir()) == [want.name],
+                f"kernel directory holds {sorted(os.listdir(kdir))}")
+        print(f"[installed] report {len(rec['report'])} bytes, checks "
+              f"{names} all passed; {len(rec['modules'])} modules from the "
+              f"read-only copy, unchanged", flush=True)
+        return dict(build_s=build_s, battery_s=rec["battery_s"],
+                    child_s=child_s, launches=counts)
+    finally:
+        if site.exists():
+            set_read_only(site, False)
+        shutil.rmtree(top, ignore_errors=True)
 
 
 def nvidia_smi_name_power() -> str:
@@ -2624,6 +2848,16 @@ def main() -> int:
             f"fused fallbacks on the controller modes: "
             f"{fused.battery_stats()}")
     print(f"[modes] phase 17 took {time.perf_counter() - t17:.2f} s",
+          flush=True)
+
+    # -- 18. the installed port ------------------------------------------
+    # The battery and the deep probe from a read-only installed copy, its
+    # kernel library prebuilt by the build entry and no nvcc reachable (a
+    # path of its own, counted in the child: K1-K5, no fused fallback).
+    t18 = time.perf_counter()
+    torch.cuda.empty_cache()
+    installed_port(card)
+    print(f"[installed] phase 18 took {time.perf_counter() - t18:.2f} s",
           flush=True)
 
     print("[launches] main path total: "

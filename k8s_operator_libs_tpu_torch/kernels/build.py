@@ -1,12 +1,29 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` has a plain C interface.  At first use each source is
-compiled with ``nvcc`` for ``sm_90a`` into an object file, all of them at
-once (one ``nvcc`` process per source), and the objects are linked into
-one shared library under ``build/torch_kernels/`` beside the package,
-named by a hash of all the sources and flags so an edited source is
-rebuilt, and loaded with ``ctypes``.  Nothing here runs at import: the
-CPU tests import every module and have no ``nvcc``.
+Every ``csrc/*.cu`` has a plain C interface.  Each source is compiled
+with ``nvcc`` for ``sm_90a`` into an object file, all of them at once
+(one ``nvcc`` process per source), and the objects are linked into one
+shared library named by a hash of all the sources and flags, so an
+edited source is rebuilt, and loaded with ``ctypes``.
+
+Where the library lives (``kernel_dir()``):
+
+- ``$K8S_TPU_TORCH_KERNEL_DIR``, when set (the port's image sets it to
+  the directory its build stage filled);
+- in a checkout of the repository, ``build/torch_kernels/`` beside the
+  package, which git ignores;
+- for an installed package, a per-user cache:
+  ``$XDG_CACHE_HOME/k8s_operator_libs_tpu_torch/kernels``, else
+  ``~/.cache/k8s_operator_libs_tpu_torch/kernels``.  Nothing is written
+  into the install itself.
+
+``load_library()`` compiles there on first use when the library is
+missing.  ``python -m k8s_operator_libs_tpu_torch.kernels.build``
+compiles it without loading it (``nvcc``, no GPU): an image builds it so,
+and its containers then load it by the same hash and need no ``nvcc``.
+Without the library and without ``nvcc`` a launch raises, naming the
+directory; there is no fallback.  Nothing here runs at import: the CPU
+tests import every module and have no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -23,7 +40,14 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = tuple(sorted(CSRC.glob("*.cu")))
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+# The directory that holds the package: a checkout's root, or
+# site-packages for an installed package.
+ROOT = Path(__file__).resolve().parents[2]
+# A checkout's kernel directory.
+BUILD_DIR = ROOT / "build" / "torch_kernels"
+KERNEL_DIR_ENV = "K8S_TPU_TORCH_KERNEL_DIR"
+# The build entry: ``python -m`` this module.
+ENTRY = "k8s_operator_libs_tpu_torch.kernels.build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -37,14 +61,39 @@ last_build_s = 0.0
 
 
 def _nvcc() -> str:
+    """``nvcc`` on ``PATH``, else under ``$CUDA_HOME`` (or
+    ``$CUDA_PATH``), else, when neither is set, under the toolkit's
+    default ``/usr/local/cuda``."""
     found = shutil.which("nvcc")
     if found:
         return found
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    nvcc = Path(home or "/usr/local/cuda") / "bin" / "nvcc"
+    if nvcc.is_file():
+        return str(nvcc)
     raise RuntimeError("nvcc not found (put it on PATH or set CUDA_HOME)")
+
+
+def in_checkout() -> bool:
+    """Whether the package lies in a checkout of this repository (its
+    ``pyproject.toml`` beside it), not in an install."""
+    return (ROOT / "pyproject.toml").is_file()
+
+
+def kernel_dir() -> Path:
+    """The directory the kernel library is built into and loaded from."""
+    configured = os.environ.get(KERNEL_DIR_ENV)
+    if configured:
+        return Path(configured)
+    if in_checkout():
+        return BUILD_DIR
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "k8s_operator_libs_tpu_torch" / "kernels"
+
+
+def library_path() -> Path:
+    """The library of these sources and flags in ``kernel_dir()``."""
+    return kernel_dir() / f"libport_kernels-{_digest()}.so"
 
 
 def _run_all(commands: list[list[str]], what: list[str]) -> None:
@@ -74,12 +123,20 @@ def _run_all(commands: list[list[str]], what: list[str]) -> None:
 
 
 def _compile(target: Path) -> None:
+    try:
+        nvcc = _nvcc()
+    except RuntimeError as e:
+        raise RuntimeError(
+            f"the kernel library {target.name} is not in {target.parent} "
+            f"and cannot be built there: {e}; build it with `python -m "
+            f"{ENTRY}` where nvcc is, with {KERNEL_DIR_ENV} naming that "
+            "directory"
+        ) from None
     target.parent.mkdir(parents=True, exist_ok=True)
     # Build in a private directory and rename the library into place:
     # concurrent first users never load a half-written library.
     with tempfile.TemporaryDirectory(prefix=".tmp-", dir=target.parent) as tmp:
         objects = [Path(tmp) / f"{src.stem}.o" for src in SOURCES]
-        nvcc = _nvcc()
         _run_all(
             [
                 [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
@@ -165,18 +222,24 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def build_library() -> Path:
+    """Compile the library into ``kernel_dir()`` unless it is there
+    already, and return its path.  Needs ``nvcc``, not a GPU."""
+    target = library_path()
+    if not target.exists():
+        _compile(target)
+    return target
+
+
 def load_library() -> ctypes.CDLL:
-    """The kernel library, compiled on first use in this checkout."""
+    """The kernel library, compiled on first use when it is missing."""
     global _LIB, last_build_s
     if _LIB is not None:  # every launch asks: no lock once loaded
         return _LIB
     with _LOCK:
         if _LIB is None:
             t0 = time.perf_counter()
-            target = BUILD_DIR / f"libport_kernels-{_digest()}.so"
-            if not target.exists():
-                _compile(target)
-            _LIB = _bind(ctypes.CDLL(str(target)))
+            _LIB = _bind(ctypes.CDLL(str(build_library())))
             last_build_s = time.perf_counter() - t0
         return _LIB
 
@@ -186,3 +249,15 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code:
         msg = lib.battery_error_string(code).decode()
         raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
+
+
+def main() -> int:
+    """Compile the library (``build_library``) and print its path."""
+    t0 = time.perf_counter()
+    path = build_library()
+    print(f"{path} ({time.perf_counter() - t0:.2f} s)", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

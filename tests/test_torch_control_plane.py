@@ -599,8 +599,8 @@ def port_module(test_file: str,
                 ) -> types.ModuleType:
     """The reference's ``tests/<test_file>`` against the port: its source
     with the package prefix rewritten and ``tests.fixtures`` (if the file
-    imports it) replaced by the port's (``ENGINES``), executed as a
-    module of its own.  ``modules`` maps another test module the file
+    imports it: once at module level, and in any function body) replaced
+    by the port's (``ENGINES``), executed as a module of its own.  ``modules`` maps another test module the file
     imports from (``"tests.test_chaos"``) to the port module that
     replaces it.  ``substitutions`` lists (reference, port) snippets of
     the rewritten source, each found exactly once, as ``OWN_COPIES`` does
@@ -608,7 +608,10 @@ def port_module(test_file: str,
     fixtures = ENGINES["port"][3]
     sys.modules.setdefault(fixtures.__name__, fixtures)
     source = PREFIX.sub(_P, (ROOT / "tests" / test_file).read_text())
-    assert source.count("from tests.fixtures import") <= 1, test_file
+    # One module-level import of the fixtures, and any number inside a
+    # function body (indented): all of them take the port's.
+    assert len(re.findall(r"^from tests\.fixtures import", source,
+                          re.MULTILINE)) <= 1, test_file
     source = source.replace(
         "from tests.fixtures import", f"from {fixtures.__name__} import"
     )
@@ -660,12 +663,19 @@ KEYS = UpgradeKeys()
     # No fixtures import (tests/test_leader.py has none).
     (_SOURCE.split("\n", 1)[1], (), False),
     (_SOURCE + "from tests.fixtures import DRIVER_LABELS\n", (), True),
+    # A second import inside a function body (tests/test_race.py's).
+    (_SOURCE + "def f():\n    from tests.fixtures import make_node\n"
+     "    return make_node\n", (), False),
+    # Two inside functions as well, beside two at module level: refused.
+    (_SOURCE + "from tests.fixtures import DRIVER_LABELS\n"
+     "def f():\n    from tests.fixtures import make_node\n", (), True),
     (_SOURCE, (("KEYS = UpgradeKeys()", "KEYS = None"),), False),
     # A substitution is found exactly once, or refused.
     (_SOURCE, (("KEYS = UpgradeKey()", "KEYS = None"),), True),
     (_SOURCE + "KEYS = UpgradeKeys()\n",
      (("KEYS = UpgradeKeys()", "KEYS = None"),), True),
-], ids=["one_fixtures_import", "none", "two_refused", "substituted",
+], ids=["one_fixtures_import", "none", "two_refused",
+        "second_in_a_function", "two_at_module_level_refused", "substituted",
         "substitution_missing", "substitution_twice"])
 def test_port_module_takes_a_file_and_its_substitutions(
         tmp_path, source, substitutions, refused):
@@ -678,6 +688,8 @@ def test_port_module_takes_a_file_and_its_substitutions(
     module = port_module(str(test_file), substitutions=substitutions)
     assert module.UpgradeKeys is tup.UpgradeKeys
     assert module.KEYS == (None if substitutions else tup.UpgradeKeys())
+    if hasattr(module, "f"):
+        assert module.f() is ENGINES["port"][3].make_node
 
 
 def test_port_keys_gives_a_test_the_controller_s_keys(tmp_path):

@@ -142,3 +142,16 @@ def test_no_import_statement_names_jax(path):
         elif isinstance(node, ast.ImportFrom) and node.module:
             named.append(node.module)
     assert not [m for m in named if _forbidden(m)]
+
+
+def test_the_port_and_chip_smoke_lint_clean():
+    """The repository's linter finds nothing in the port or in
+    ``chip_smoke.py`` (``make lint`` covers the JAX package's tree)."""
+    proc = subprocess.run(
+        [sys.executable, "tools/lint.py", "k8s_operator_libs_tpu_torch",
+         "chip_smoke.py"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout == ""
+    assert proc.stderr.strip().endswith(" files, 0 finding(s)"), proc.stderr

@@ -22,10 +22,19 @@ all-reduce round it carries.
 
 from __future__ import annotations
 
+import importlib.util
+import os
+import subprocess
+import sys
+import types
+from pathlib import Path
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import chip_smoke  # noqa: E402
 
 from k8s_operator_libs_tpu_torch.kernels import (  # noqa: E402
     all_gather,
@@ -250,6 +259,156 @@ def test_build_targets_sm90a_and_binds_every_entry_point():
     # The build writes into a directory git ignores.
     ignored = (build.BUILD_DIR.parents[1] / ".gitignore").read_text()
     assert "build/torch_kernels/" in ignored.split()
+
+
+# -- where the kernel library lives ----------------------------------------
+# A stub ``nvcc`` writes each ``-o`` file and logs its call; nothing it
+# writes is loaded.
+_STUB_NVCC = """#!/bin/sh
+echo "$@" >> "${0%/*}/calls.log"
+while [ $# -gt 0 ]; do
+  if [ "$1" = "-o" ]; then echo stub > "$2"; fi
+  shift
+done
+"""
+
+
+def _stub_nvcc(tmp_path: Path) -> Path:
+    """A directory holding the stub ``nvcc``; its calls go to
+    ``calls.log`` there."""
+    bin_dir = tmp_path / "stub-bin"
+    bin_dir.mkdir()
+    nvcc = bin_dir / "nvcc"
+    nvcc.write_text(_STUB_NVCC)
+    nvcc.chmod(0o755)
+    return bin_dir
+
+
+def _stub_calls(bin_dir: Path) -> int:
+    log = bin_dir / "calls.log"
+    return len(log.read_text().splitlines()) if log.exists() else 0
+
+
+@pytest.fixture
+def installed(tmp_path):
+    """The port laid out as its wheel installs it, read-only: phase 18's
+    copy (``chip_smoke.lay_out_install``)."""
+    site = tmp_path / "site"
+    chip_smoke.lay_out_install(site)
+    chip_smoke.set_read_only(site, True)
+    yield site
+    chip_smoke.set_read_only(site, False)
+
+
+def _copied_build(site: Path):
+    """The install's ``kernels/build.py`` as a module of its own (it
+    imports nothing of the package)."""
+    path = site / "k8s_operator_libs_tpu_torch" / "kernels" / "build.py"
+    spec = importlib.util.spec_from_file_location("_installed_build", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _no_kernel_env(monkeypatch, tmp_path):
+    monkeypatch.delenv(build.KERNEL_DIR_ENV, raising=False)
+    monkeypatch.delenv("XDG_CACHE_HOME", raising=False)
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+
+
+def test_the_build_entry_writes_only_into_the_kernel_directory(
+        tmp_path, installed):
+    """``python -m ...kernels.build`` from a read-only install compiles
+    the library into the configured directory, named by the digest of
+    the sources and flags, and leaves the install byte for byte as it
+    was; run again, it finds the library and compiles nothing."""
+    bin_dir = _stub_nvcc(tmp_path)
+    kernels = tmp_path / "kernels"
+    before = chip_smoke.tree_digest(installed)
+    env = {**os.environ, build.KERNEL_DIR_ENV: str(kernels),
+           "PYTHONPATH": str(installed), "PYTHONDONTWRITEBYTECODE": "1",
+           "PATH": os.pathsep.join([str(bin_dir), os.environ["PATH"]])}
+    want = kernels / f"libport_kernels-{build._digest()}.so"
+    for calls in (len(build.SOURCES) + 1, len(build.SOURCES) + 1):
+        proc = subprocess.run(
+            [sys.executable, "-m", build.ENTRY], cwd=tmp_path, env=env,
+            capture_output=True, text=True, timeout=120,
+        )
+        assert proc.returncode == 0, proc.stderr
+        assert proc.stdout.split()[0] == str(want)
+        # One nvcc a source and the link, the first time only.
+        assert _stub_calls(bin_dir) == calls
+    assert sorted(p.name for p in kernels.iterdir()) == [want.name]
+    assert chip_smoke.tree_digest(installed) == before
+    assert not any(installed.rglob("*.so"))
+
+
+def test_a_second_load_finds_the_built_library(tmp_path, installed,
+                                               monkeypatch):
+    """``load_library`` resolves the library the build entry made (the
+    same digest-named file) and runs ``nvcc`` no more."""
+    bin_dir = _stub_nvcc(tmp_path)
+    monkeypatch.setenv("PATH", str(bin_dir))
+    monkeypatch.setenv(build.KERNEL_DIR_ENV, str(tmp_path / "kernels"))
+    mod = _copied_build(installed)
+    built = mod.build_library()
+    assert _stub_calls(bin_dir) == len(build.SOURCES) + 1
+    loaded = []
+    monkeypatch.setattr(mod, "ctypes", types.SimpleNamespace(
+        CDLL=lambda path: loaded.append(path) or path))
+    monkeypatch.setattr(mod, "_bind", lambda lib: lib)
+    assert mod.load_library() == str(built)
+    assert loaded == [str(built)]
+    assert _stub_calls(bin_dir) == len(build.SOURCES) + 1
+
+
+@pytest.mark.parametrize("cache", ["home", "xdg"])
+def test_an_install_s_default_kernel_directory_is_the_user_s(
+        tmp_path, installed, monkeypatch, cache):
+    """Outside a checkout, with no kernel directory configured, the
+    library goes to the user's cache: writable, and not in the install."""
+    _no_kernel_env(monkeypatch, tmp_path)
+    if cache == "xdg":
+        monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "xdg"))
+    bin_dir = _stub_nvcc(tmp_path)
+    monkeypatch.setenv("PATH", str(bin_dir))
+    mod = _copied_build(installed)
+    assert not mod.in_checkout()
+    base = tmp_path / ("home/.cache" if cache == "home" else "xdg")
+    assert mod.kernel_dir() == base / "k8s_operator_libs_tpu_torch" / "kernels"
+    built = mod.build_library()
+    assert built.parent == mod.kernel_dir() and built.is_file()
+    assert installed not in built.parents
+
+
+def test_a_checkout_keeps_its_kernel_directory(tmp_path, monkeypatch):
+    _no_kernel_env(monkeypatch, tmp_path)
+    root = Path(build.__file__).resolve().parents[2]
+    assert build.in_checkout()
+    assert build.kernel_dir() == root / "build" / "torch_kernels"
+    assert build.library_path().parent == build.BUILD_DIR
+    monkeypatch.setenv(build.KERNEL_DIR_ENV, str(tmp_path / "k"))
+    assert build.kernel_dir() == tmp_path / "k"
+
+
+@pytest.mark.parametrize("configured", [True, False])
+def test_no_library_and_no_nvcc_raises_naming_the_directory(
+        tmp_path, installed, monkeypatch, configured):
+    """No fallback: with the library missing and no ``nvcc`` reachable, a
+    load raises and names the directory it looked in."""
+    _no_kernel_env(monkeypatch, tmp_path)
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    monkeypatch.setenv("PATH", str(empty))
+    monkeypatch.setenv("CUDA_HOME", str(empty))
+    if configured:
+        monkeypatch.setenv(build.KERNEL_DIR_ENV, str(tmp_path / "kernels"))
+    mod = _copied_build(installed)
+    with pytest.raises(RuntimeError) as e:
+        mod.load_library()
+    assert f"is not in {mod.kernel_dir()} " in str(e.value)
+    assert "nvcc not found" in str(e.value)
+    assert not mod.kernel_dir().exists()
 
 
 @pytest.mark.cuda

@@ -1,0 +1,10 @@
+"""The JAX package's ``tests/test_topology.py`` against the port (the
+slice topology model and DCN grouping).
+
+``port_module`` runs the file's source with the package prefix rewritten
+on the port's fixtures.
+"""
+
+from tests.test_torch_control_plane import port_module, port_tests
+
+globals().update(port_tests(port_module("test_topology.py")))
