@@ -207,7 +207,30 @@ Phases:
    must pass every check, K1-K5 launch with no fused fallback, every
    module and the library come from the copy and the kernel directory,
    and the copy stay byte for byte as it was.  The build's and the
-   battery's seconds and the child's launches are printed.
+   battery's seconds and the child's launches are printed;
+19. the node's entry points as its DaemonSets start them: the port's
+   ``KubeApiServer`` over a ``FakeCluster`` holding one GFD-labelled H100
+   node, and each container a process of its own, ``python -m
+   k8s_operator_libs_tpu_torch.health.agent`` or ``python -m
+   k8s_operator_libs_tpu_torch.driver.safe_load_init``, that finds the
+   server through ``KUBECONFIG`` alone (no in-cluster config, no token)
+   with ``NODE_NAME`` and ``DRIVER_NAME`` set, and the cards this run
+   was given.  The agent (its module run as ``__main__`` under a SIGTERM
+   handler that prints its launches), with the deep probe on and its
+   default battery (production size, every CUDA device), must publish a
+   report under the driver's keys that names every check of the fused
+   battery and the deep probe, each ok, carries the revision and counts
+   every card; its process must have launched K1, K1's verifying pass
+   and K2, and over two cards or more K3, K4 and K5 as well (on one card
+   the link checks and the deep probe have no peer and do no work, and
+   are printed as not exercised), while the kernel directory's listing
+   stays as phase 2 left it (the child compiles nothing); with
+   ``CUDA_VISIBLE_DEVICES=""`` it must publish an unhealthy report with
+   0 devices and the enumeration's failure, and launch nothing; each
+   exits 0 when it is terminated once its report lands.  The safe-load init container must announce itself and,
+   once the parent removes its annotation, exit 0 within 10 s.  Each
+   child has a deadline; its wall and the battery's seconds from the
+   report are printed.
 
 Kernel launch counts are zeroed just before each path of phases 4-17
 (unfused, fused cold, fused warm, agent, local prober, the collective
@@ -223,8 +246,10 @@ paths, K4 and K5 on the all-reduce, sharded, 8-member network, every
 roll and both elastic roll paths, K4 on the ring shift's: 2 x 8 on the
 ring probe's), and no path
 may have fallen back from the fused battery.  The cross-ring workers and
-phase 18's battery are processes of their own: each counts its launches
-and prints them.  K4's launches are also split by
+phase 18's battery and phase 19's agent are processes of their own:
+each counts its launches and prints them (the agent, its module run as
+``__main__``, at its termination; on one card it launches K1 and K2,
+since its link checks and deep probe have no peer).  K4's launches are also split by
 shape (k, len), from the plans' rounds.  A child process that fails or outlives its time fails
 the run.
 Any failure exits non-zero and prints no result; so does a machine
@@ -812,6 +837,319 @@ def installed_port(card: str, members: int = 8, matmul_n: int = 4096,
         if site.exists():
             set_read_only(site, False)
         shutil.rmtree(top, ignore_errors=True)
+
+
+# -- phase 19: the node's entry points --------------------------------------
+AGENT_MODULE = f"{PORT_PACKAGE}.health.agent"
+SAFE_LOAD_MODULE = f"{PORT_PACKAGE}.driver.safe_load_init"
+ENTRY_NODE = "gpu-node-entry"
+ENTRY_REVISION = "rev-entry"
+# From a child's start to its report: an interpreter with torch, CUDA's
+# start, the library's load and one battery with the deep probe at
+# production size (phase 18's child took 9.51 s for one over 8 members).
+AGENT_DEADLINE_S = 300.0
+# From the safe-load child's start to its annotation (no torch), and
+# from the annotation's removal to the child's exit 0.
+SAFE_LOAD_DEADLINE_S = 60.0
+SAFE_LOAD_EXIT_S = 10.0
+SAFE_LOAD_POLL_S = "0.05"
+# Settings of the parent's environment that would change what a node's
+# container does: an in-cluster config, a cross-host world, the agent's
+# DaemonSet env.  Each child gets only what its phase gives it.  The
+# card assignment (``CUDA_VISIBLE_DEVICES``) is inherited: the children
+# use the cards this run was given and no other.
+ENTRY_ENV_DROP = (
+    "KUBERNETES_SERVICE_HOST", "KUBERNETES_SERVICE_PORT", "KUBECONFIG",
+    "WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT", "HEALTH_DEEP_PROBE",
+    "HEALTH_DCN_GROUP", "HEALTH_DCN_GROUPS", "HEALTH_DCN_PEERS",
+    "HEALTH_PROBE_INTERVAL_S", "DRIVER_REVISION", "SAFE_LOAD_POLL_S",
+)
+# The agent's container runs ``python -m AGENT_MODULE``; here the same
+# module runs as ``__main__`` under a SIGTERM handler that prints its
+# process's kernel launches on one line and exits 0 (the agent runs until
+# the kubelet stops it, so its counts are read at its termination).
+ENTRY_LAUNCHES_TAG = "[entry-launches] "
+ENTRY_COUNTING = f"""\
+import json, os, runpy, signal, sys
+
+
+def stop(signum, frame):
+    from {PORT_PACKAGE} import kernels as K
+
+    counts = K.launch_counts()
+    counts["block_attention_merge_"] = K.block_attention_merge_.launches
+    print({ENTRY_LAUNCHES_TAG!r} + json.dumps(counts), flush=True)
+    sys.stderr.flush()
+    os._exit(0)
+
+
+signal.signal(signal.SIGTERM, stop)
+runpy.run_module(sys.argv.pop(1), run_name="__main__", alter_sys=True)
+"""
+
+
+def write_kubeconfig(path: Path, host: str) -> Path:
+    """A kubeconfig (JSON, which YAML reads) whose current context
+    reaches ``host`` with no credentials."""
+    path.write_text(json.dumps({
+        "current-context": "local",
+        "contexts": [{"name": "local",
+                      "context": {"cluster": "local", "user": "local"}}],
+        "clusters": [{"name": "local", "cluster": {"server": host}}],
+        "users": [{"name": "local", "user": {}}],
+    }))
+    return path
+
+
+class NodeEntryPoints:
+    """The node's two containers as their DaemonSets start them, each
+    ``python -m <module>`` in a process of its own from this checkout,
+    against the port's ``KubeApiServer`` over a ``FakeCluster`` that
+    holds one GFD-labelled H100 node.  The children find the server
+    through ``KUBECONFIG`` alone: no in-cluster config, no token.  A
+    context manager: on leaving it every child is killed and the server
+    stopped."""
+
+    def __init__(self, top: Path) -> None:
+        from k8s_operator_libs_tpu_torch.bench_fleet import GpuFleet
+        from k8s_operator_libs_tpu_torch.k8s import (
+            FakeCluster,
+            KubeApiServer,
+        )
+        from k8s_operator_libs_tpu_torch.keys import (
+            DEFAULT_DRIVER_NAME,
+            driver_keys,
+        )
+
+        self.top = top
+        self.keys = driver_keys()
+        self.store = FakeCluster()
+        GpuFleet(self.store, self.keys).gpu_node(ENTRY_NODE)
+        self.server = KubeApiServer(self.store)
+        self.env = {k: v for k, v in os.environ.items()
+                    if k not in ENTRY_ENV_DROP}
+        self.env.update({"NODE_NAME": ENTRY_NODE,
+                         "DRIVER_NAME": DEFAULT_DRIVER_NAME})
+        self.children: list = []
+
+    def __enter__(self) -> "NodeEntryPoints":
+        self.server.start()
+        self.env["KUBECONFIG"] = str(write_kubeconfig(
+            self.top / "kubeconfig", self.server.host))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for proc, _ in self.children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        self.server.stop()
+
+    def start(self, module: str, what: str, counted: bool = False,
+              **env: str):
+        """Start ``python -m module`` (with ``counted``, the module as
+        ``__main__`` under ``ENTRY_COUNTING``) with the phase's env and
+        ``env``; returns the process and its log (stdout and stderr)."""
+        log = self.top / f"{what.replace(' ', '-')}.log"
+        argv = (["-c", ENTRY_COUNTING, module] if counted
+                else ["-m", module])
+        with open(log, "w") as out:
+            proc = subprocess.Popen(
+                [sys.executable, *argv], cwd=HERE,
+                env={**self.env, **env}, stdout=out,
+                stderr=subprocess.STDOUT)
+        self.children.append((proc, log))
+        return proc, log
+
+    @staticmethod
+    def wait_for(cond, proc, log: Path, deadline_s: float, what: str,
+                 t0: float) -> float:
+        """Poll ``cond`` until it holds; fails the run if ``proc`` ends
+        first or ``deadline_s`` passes.  Returns the seconds since
+        ``t0``."""
+        while not cond():
+            if proc.poll() is not None:
+                require(False, f"{what} exited {proc.returncode} first:\n"
+                        f"{log.read_text()[-4000:]}")
+            if time.perf_counter() - t0 > deadline_s:
+                proc.kill()
+                proc.wait()
+                require(False, f"{what} outlived {deadline_s} s:\n"
+                        f"{log.read_text()[-4000:]}")
+            time.sleep(0.05)
+        return time.perf_counter() - t0
+
+    def annotations(self) -> dict:
+        return self.store.get_node(ENTRY_NODE, cached=False).annotations
+
+    def agent(self, what: str, **env: str) -> dict:
+        """The agent container: started, waited on until its report
+        lands under the driver's keys, then terminated (the agent runs
+        until the kubelet stops it).  It must still be running when its
+        report lands, and exit 0 at its termination with its process's
+        kernel launches (``launches``)."""
+        from k8s_operator_libs_tpu_torch.health.report import HealthReport
+
+        key = self.keys.health_report_annotation
+        self.store.patch_node_annotations(ENTRY_NODE, {key: None})
+        t0 = time.perf_counter()
+        proc, log = self.start(AGENT_MODULE, what, counted=True,
+                               DRIVER_REVISION=ENTRY_REVISION, **env)
+        report_s = self.wait_for(lambda: key in self.annotations(), proc,
+                                 log, AGENT_DEADLINE_S, what, t0)
+        raw = self.annotations()[key]
+        require(proc.poll() is None, f"{what} exited {proc.returncode} "
+                f"after its report:\n{log.read_text()[-4000:]}")
+        proc.terminate()
+        try:
+            code = proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            require(False, f"{what} outlived its termination")
+        text = log.read_text()
+        tagged = [ln for ln in text.splitlines()
+                  if ln.startswith(ENTRY_LAUNCHES_TAG)]
+        require(code == 0 and len(tagged) == 1,
+                f"{what} exited {code} at its termination, "
+                f"{len(tagged)} launch lines:\n{text[-4000:]}")
+        return dict(report=HealthReport.from_json(raw), raw=raw,
+                    report_s=report_s, wall_s=time.perf_counter() - t0,
+                    launches=json.loads(
+                        tagged[0][len(ENTRY_LAUNCHES_TAG):]))
+
+    def safe_load(self, what: str = "safe-load init") -> dict:
+        """The safe-load init container: started, waited on until it
+        announces itself, released by removing the annotation, and then
+        it must exit 0 within ``SAFE_LOAD_EXIT_S``."""
+        key = self.keys.safe_load_annotation
+        t0 = time.perf_counter()
+        proc, log = self.start(SAFE_LOAD_MODULE, what,
+                               SAFE_LOAD_POLL_S=SAFE_LOAD_POLL_S)
+        announced_s = self.wait_for(lambda: key in self.annotations(), proc,
+                                    log, SAFE_LOAD_DEADLINE_S, what, t0)
+        self.store.patch_node_annotations(ENTRY_NODE, {key: None})
+        t1 = time.perf_counter()
+        try:
+            code = proc.wait(timeout=SAFE_LOAD_EXIT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            require(False, f"{what} did not exit within {SAFE_LOAD_EXIT_S} "
+                    f"s of its release:\n{log.read_text()[-4000:]}")
+        require(code == 0, f"{what} exited {code}:\n"
+                f"{log.read_text()[-4000:]}")
+        return dict(announced_s=announced_s,
+                    exit_s=time.perf_counter() - t1,
+                    wall_s=time.perf_counter() - t0)
+
+
+def no_device_report(rec: dict) -> None:
+    """The agent with no device must publish, not crash: an unhealthy
+    report, 0 devices and the enumeration's failure as its detail, and
+    no kernel launched."""
+    report = rec["report"]
+    require(not any(rec["launches"].values()),
+            f"the no-device agent launched kernels: {rec['launches']}")
+    checks = [(c.name, c.ok) for c in report.checks]
+    require(not report.healthy and report.visible_devices == 0
+            and checks == [("device_enumeration", False)]
+            and "device enumeration failed" in report.checks[0].detail
+            and report.driver_revision == ENTRY_REVISION,
+            f"the no-device agent's report: {rec['raw']}")
+
+
+def node_entry_points(card: str) -> dict:
+    """Phase 19: the agent (healthy, every CUDA device this run was
+    given, the deep probe on; then with no device visible) and the
+    safe-load init container, each a process of its own from a
+    kubeconfig.  The healthy report must name every check of the battery
+    and the deep probe, each passed, and ``visible_devices`` the card
+    count; the agent's process must have launched K1, its verifying pass
+    and K2.  The link checks (``ici_allreduce``, ``ici_ring``) and the
+    deep probe have work only over two devices or more: there they must
+    have launched K4, K5 and K3; on one card the agent runs them on no
+    peer, so they carry one device and are reported as not exercised.
+    The kernel directory's listing must not change (the library is phase
+    2's: no child compiles)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from k8s_operator_libs_tpu_torch.kernels import build
+
+    kdir = build.kernel_dir()
+    listing = sorted(os.listdir(kdir))
+    require(f"libport_kernels-{build._digest()}.so" in listing,
+            f"phase 2's library is not in {kdir}: {listing}")
+    top = Path(tempfile.mkdtemp(prefix="entry-points-"))
+    try:
+        with NodeEntryPoints(top) as node:
+            healthy = node.agent("agent", HEALTH_DEEP_PROBE="1",
+                                 HEALTH_PROBE_INTERVAL_S="3600")
+            none = node.agent("agent with no device", HEALTH_DEEP_PROBE="1",
+                              HEALTH_PROBE_INTERVAL_S="3600",
+                              CUDA_VISIBLE_DEVICES="")
+            safe = node.safe_load()
+    finally:
+        shutil.rmtree(top, ignore_errors=True)
+    n_dev = torch.cuda.device_count()
+    report = healthy["report"]
+    names = [c.name for c in report.checks]
+    bad = [f"{c.name}: {c.detail}" for c in report.checks if not c.ok]
+    want = ["device_enumeration", "mxu_matmul", "hbm_bandwidth",
+            "ici_allreduce", "ici_ring", "ici_ring_attention"]
+    require(report.healthy and not bad and names == want
+            and report.node_name == ENTRY_NODE
+            and report.driver_revision == ENTRY_REVISION
+            and report.visible_devices == n_dev,
+            f"the agent's report: checks {names}, failed {bad}, "
+            f"{report.visible_devices} devices")
+    no_device_report(none)
+    require(sorted(os.listdir(kdir)) == listing,
+            f"a child changed the kernel directory: {sorted(os.listdir(kdir))}"
+            f" against {listing}")
+    links = report.checks[3:6]
+    for c in links:
+        require(c.metrics.get("devices") == float(n_dev),
+                f"the agent's {c.name} ran over {c.metrics} devices, not "
+                f"{n_dev}")
+    # Each check that did work, and the kernels its work launches.
+    ran = report.checks[1:3] + (links if n_dev >= 2 else [])
+    must = ["stream_increment_", "stream_increment_verify_", "verify_stats"]
+    if n_dev >= 2:
+        must += ["peer_reduce", "peer_gather", "block_attention"]
+    counts = healthy["launches"]
+    print("[launches] phase 19 agent, every check from its report (its own "
+          "process, read at its termination): "
+          + ", ".join(f"{k} {n}" for k, n in counts.items()), flush=True)
+    require(all(counts[k] > 0 for k in must),
+            f"the agent's process launched {counts}; it must launch {must}")
+    for c in ran[:4]:
+        require(c.metrics.get("fused") == 1.0,
+                f"the agent's {c.name} is not fused: {c.metrics}")
+    idle = [c.name for c in links if n_dev < 2]
+    body = report.checks[1].metrics
+    deep_s = report.checks[5].latency_ms / 1e3
+    checks_s = (body["battery_compile_ms"] + body["battery_execute_ms"]) / 1e3
+    checks_s += deep_s
+    print(f"[entry] agent (deep probe, {n_dev} CUDA device(s)): report after "
+          f"{healthy['report_s']:.2f} s, child {healthy['wall_s']:.2f} s, "
+          f"battery {checks_s:.3f} s from its report (fused warm-up "
+          f"{body['battery_compile_ms'] / 1e3:.3f} s, body "
+          f"{body['battery_execute_ms'] / 1e3:.3f} s, deep probe "
+          f"{deep_s:.3f} s), checks with work {[c.name for c in ran]} "
+          f"passed, launching {must}; not exercised (no peer on one card, "
+          f"reported ok): {idle}; {report.visible_devices} devices, "
+          f"revision {report.driver_revision}; no device: report after "
+          f"{none['report_s']:.2f} s, unhealthy, 0 devices, no launch ("
+          f"{none['report'].checks[0].detail}); safe-load init: announced "
+          f"after {safe['announced_s']:.2f} s, exit 0 {safe['exit_s']:.3f} s"
+          f" after its release, child {safe['wall_s']:.2f} s; kernel "
+          f"directory unchanged; on {card}", flush=True)
+    return dict(agent_s=healthy["wall_s"], battery_s=checks_s,
+                no_device_s=none["wall_s"], safe_load_s=safe["wall_s"])
 
 
 def nvidia_smi_name_power() -> str:
@@ -2858,6 +3196,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     installed_port(card)
     print(f"[installed] phase 18 took {time.perf_counter() - t18:.2f} s",
+          flush=True)
+
+    # -- 19. the node's entry points -------------------------------------
+    # The agent and the safe-load init container as their DaemonSets run
+    # them: processes of their own, from a kubeconfig, against an API
+    # server.  The agent loads phase 2's library; its launches are its
+    # own process's, printed at its termination (K1 and K2 on one card).
+    t19 = time.perf_counter()
+    torch.cuda.empty_cache()
+    node_entry_points(card)
+    print(f"[entry] phase 19 took {time.perf_counter() - t19:.2f} s",
           flush=True)
 
     print("[launches] main path total: "

@@ -15,11 +15,8 @@ Run in the validation DaemonSet as
 
 from __future__ import annotations
 
-import json
 import os
-import ssl
 import time
-import urllib.request
 from datetime import timedelta
 from typing import Optional, Sequence
 
@@ -38,7 +35,6 @@ NODE_NAME_ENV = "NODE_NAME"
 # Driver revision the agent probes under; injected by the controller via
 # the DaemonSet template (so it changes exactly when the driver does).
 DRIVER_REVISION_ENV = "DRIVER_REVISION"
-SERVICE_ACCOUNT_DIR = "/var/run/secrets/kubernetes.io/serviceaccount"
 # How long a collective of the cross-host world waits for a peer that
 # never enters it before it raises and fails its check.
 DISTRIBUTED_TIMEOUT_S = 120.0
@@ -190,50 +186,11 @@ def csv_env(name: str) -> Optional[list]:
     return entries or None
 
 
-class InClusterNodeAnnotator:
-    """The one API call the agent makes, against the cluster it runs in:
-    a JSON merge-patch of a node's annotations, authenticated with the
-    pod's service-account token."""
-
-    def __init__(self, timeout_s: float = 30.0) -> None:
-        host = os.environ.get("KUBERNETES_SERVICE_HOST", "")
-        port = os.environ.get("KUBERNETES_SERVICE_PORT", "443")
-        token_path = os.path.join(SERVICE_ACCOUNT_DIR, "token")
-        if not host or not os.path.exists(token_path):
-            raise RuntimeError(
-                "not running in a cluster (no KUBERNETES_SERVICE_HOST / "
-                "service-account token)"
-            )
-        self.base = f"https://{host}:{port}"
-        self.token_path = token_path
-        self.ssl = ssl.create_default_context(
-            cafile=os.path.join(SERVICE_ACCOUNT_DIR, "ca.crt")
-        )
-        self.timeout_s = timeout_s
-
-    def patch_node_annotations(self, name: str, patch: dict) -> None:
-        # The token is re-read per call: kubelet rotates projected tokens.
-        with open(self.token_path) as f:
-            token = f.read().strip()
-        req = urllib.request.Request(
-            f"{self.base}/api/v1/nodes/{name}",
-            data=json.dumps({"metadata": {"annotations": patch}}).encode(),
-            method="PATCH",
-            headers={
-                "Authorization": f"Bearer {token}",
-                "Content-Type": "application/merge-patch+json",
-                "Accept": "application/json",
-            },
-        )
-        with urllib.request.urlopen(
-            req, timeout=self.timeout_s, context=self.ssl
-        ):
-            pass
-
-
 def main() -> None:
     """Entrypoint for the agent container:
     ``python -m k8s_operator_libs_tpu_torch.health.agent``."""
+    from k8s_operator_libs_tpu_torch.k8s import get_default_client
+
     node_name = os.environ.get(NODE_NAME_ENV, "")
     if not node_name:
         raise SystemExit(f"{NODE_NAME_ENV} is required")
@@ -242,7 +199,7 @@ def main() -> None:
     # slice_wide=False (the agent's default) whatever the world's size.
     maybe_initialize_distributed()
     agent = HealthAgent(
-        client=InClusterNodeAnnotator(),
+        client=get_default_client(),
         node_name=node_name,
         # DRIVER_NAME, set by the agent DaemonSet, names the controller's
         # driver: the report lands under the keys the controller reads.

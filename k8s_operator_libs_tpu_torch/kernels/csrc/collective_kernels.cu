@@ -609,6 +609,10 @@ cudaError_t build_graph(const Plan& p, Graph& g, const uint64_t* in,
 cudaError_t repoint_graph(const Plan& p, Graph& g, const uint64_t* in,
                           const uint64_t* out, float divisor) {
   for (int j = 0; j < p.n; ++j) {
+    // A node's new parameters are taken in the current device's context:
+    // set from another device, they would move the node (invalid value).
+    const DeviceGuard guard(p.devices[j]);
+    if (guard.err != cudaSuccess) return guard.err;
     if (has_rs(p, j)) {
       ReduceArgs a = rs_args(p, in, out, divisor, j);
       cudaKernelNodeParams np = a.node();
@@ -803,7 +807,10 @@ int collective_plan_launch(void* plan, const uint64_t* ptrs, float divisor) {
   std::lock_guard<std::mutex> lock(p.mu);
   cudaGraphExec_t exec = nullptr;
   cudaError_t err = graph_for(p, in, out, divisor, &exec);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // as below: reported once, here
+    return static_cast<int>(err);
+  }
   cudaStream_t hub = reinterpret_cast<cudaStream_t>(streams[0]);
   // A stream shared with an earlier member is ordered already.
   auto seen = [&](int i) {
@@ -849,6 +856,9 @@ int collective_plan_launch(void* plan, const uint64_t* ptrs, float divisor) {
     const cudaError_t back = cudaSetDevice(prev);
     if (err == cudaSuccess) err = back;
   }
+  // The failed call's error is returned here; read it off the thread's
+  // error state so that the next launch's check does not report it again.
+  if (err != cudaSuccess) cudaGetLastError();
   return static_cast<int>(err);
 }
 

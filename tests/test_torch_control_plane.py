@@ -21,6 +21,8 @@ from pathlib import Path
 from typing import Optional
 
 import pytest
+import torch
+from _pytest.fixtures import getfixturemarker
 
 import k8s_operator_libs_tpu as jpkg
 import k8s_operator_libs_tpu_torch as tpkg
@@ -39,7 +41,8 @@ PREFIX = re.compile(r"\bk8s_operator_libs_tpu\b")
 
 # Every module of the engine's closure that the port copies.  The
 # closure's accelerator-side modules (hw.py, fleet/profiles.py,
-# artifacts/gates.py) and the package's __init__ are the port's own.
+# artifacts/gates.py) and the package's __init__ are the port's own.  The
+# last is the repository's consumer example, which embeds the engine.
 COPIED = (
     "consts.py",
     "api/__init__.py", "api/schema.py", "api/v1alpha1.py",
@@ -66,6 +69,7 @@ COPIED = (
     "federation/registry.py", "federation/ledger.py", "federation/plan.py",
     "federation/canary.py", "federation/coordinator.py",
     "federation/__init__.py",
+    "examples/consumer_operator.py",
 )
 
 _P = "k8s_operator_libs_tpu_torch"
@@ -498,8 +502,11 @@ def _code(source: str) -> str:
 
 
 def _reference(module: str) -> str:
-    """The reference's source of ``module`` with the prefix rewritten."""
-    return PREFIX.sub(_P, (REF / module).read_text())
+    """The reference's source of ``module`` with the prefix rewritten:
+    the package's, or for the consumer example the repository's
+    ``examples/``."""
+    top = ROOT if module.startswith("examples/") else REF
+    return PREFIX.sub(_P, (top / module).read_text())
 
 
 def _substituted(module: str) -> str:
@@ -646,9 +653,50 @@ def port_keys(anchor: str) -> tuple[str, str]:
 
 def port_tests(module: types.ModuleType) -> dict:
     """The tests of a ``port_module`` (its ``test_*`` functions and
-    ``Test*`` classes), for a port test file to take into its globals."""
+    ``Test*`` classes) and the pytest fixtures it defines at module level
+    (plain, parametrised or autouse), for a port test file to take into
+    its globals: its cases then run on their own file's fixtures."""
     return {k: v for k, v in vars(module).items()
-            if k.startswith(("test_", "Test"))}
+            if k.startswith(("test_", "Test"))
+            or getfixturemarker(v) is not None}
+
+
+def departed(tests: dict, departures: dict) -> dict:
+    """``tests`` (a ``port_tests``) without the reference cases that
+    ``departures`` names: a function by its name, a method as
+    ``Class.method``, taken off its class (the class is the port
+    module's own).  Each name must be found."""
+    kept = dict(tests)
+    for name in departures:
+        cls, _, method = name.rpartition(".")
+        if cls:
+            assert method in vars(kept[cls]), name
+            delattr(kept[cls], method)
+        else:
+            assert name in kept, name
+            del kept[name]
+    return kept
+
+
+def unmirrored(departures: dict, namespace: dict) -> list:
+    """The ``departures`` (name -> (reason, mirror)) whose reason is empty
+    or whose mirror (``name`` or ``Class.method``) ``namespace`` lacks."""
+    def found(name: str) -> bool:
+        cls, _, method = name.rpartition(".")
+        return (method in vars(namespace[cls]) if cls in namespace
+                else not cls and name in namespace)
+
+    return [name for name, (reason, mirror) in departures.items()
+            if not (reason and found(mirror))]
+
+
+@pytest.fixture(scope="session", name="cpu_devices")
+def port_cpu_devices():
+    """conftest's ``cpu_devices`` (JAX's 8 virtual CPU devices) for a
+    ``port_module``'s cases that hand devices to the port's agent or
+    battery: 8 members of the port's CPU device.  A port test file takes
+    it by importing it."""
+    return [torch.device("cpu")] * 8
 
 
 _SOURCE = """from tests.fixtures import NAMESPACE
@@ -690,6 +738,77 @@ def test_port_module_takes_a_file_and_its_substitutions(
     assert module.KEYS == (None if substitutions else tup.UpgradeKeys())
     if hasattr(module, "f"):
         assert module.f() is ENGINES["port"][3].make_node
+
+
+_FIXTURES_SOURCE = """import pytest
+
+
+@pytest.fixture()
+def plain():
+    return "plain"
+
+
+@pytest.fixture(params=["fake", "rest"])
+def tier(request):
+    return request.param
+
+
+@pytest.fixture(autouse=True)
+def everywhere():
+    yield
+
+
+def helper():
+    return 1
+
+
+def test_one(plain, tier):
+    pass
+
+
+class TestTwo:
+    def test_a(self):
+        pass
+
+    def test_b(self):
+        pass
+"""
+
+
+def test_port_tests_takes_the_file_s_fixtures(tmp_path):
+    """``port_tests`` takes the file's tests and every module-level
+    pytest fixture (plain, parametrised, autouse), and nothing else."""
+    test_file = tmp_path / "test_example_port_tests.py"
+    test_file.write_text(_FIXTURES_SOURCE)
+    taken = port_tests(port_module(str(test_file)))
+    assert sorted(taken) == ["TestTwo", "everywhere", "plain", "test_one",
+                             "tier"]
+    assert getfixturemarker(taken["tier"]).params == ("fake", "rest")
+    assert getfixturemarker(taken["everywhere"]).autouse
+
+
+def test_departed_takes_cases_off_and_unmirrored_names_them(tmp_path):
+    """``departed`` drops a function and a class's method, and refuses a
+    name the file lacks; ``unmirrored`` names a departure whose mirror
+    is missing or whose reason is empty."""
+    test_file = tmp_path / "test_example_departed.py"
+    test_file.write_text(_FIXTURES_SOURCE)
+    taken = port_tests(port_module(str(test_file)))
+    kept = departed(taken, {"test_one": (), "TestTwo.test_a": ()})
+    assert "test_one" not in kept and "test_one" in taken
+    assert [n for n in vars(kept["TestTwo"]) if n.startswith("test_")] == [
+        "test_b"]
+    for missing in ("test_three", "TestTwo.test_c"):
+        with pytest.raises(AssertionError):
+            departed(taken, {missing: ()})
+    namespace = {"test_mirror": None, "TestTwo": kept["TestTwo"]}
+    assert unmirrored({
+        "a": ("reason", "test_mirror"),
+        "b": ("reason", "TestTwo.test_b"),
+        "c": ("reason", "test_absent"),
+        "d": ("reason", "TestTwo.test_a"),
+        "e": ("", "test_mirror"),
+    }, namespace) == ["c", "d", "e"]
 
 
 def test_port_keys_gives_a_test_the_controller_s_keys(tmp_path):

@@ -22,7 +22,13 @@ import sys
 from k8s_operator_libs_tpu_torch.keys import OPERATOR_IMAGE
 from k8s_operator_libs_tpu_torch.manifests import DEFAULT_IMAGE
 from k8s_operator_libs_tpu_torch.kernels.build import ENTRY, KERNEL_DIR_ENV
-from tests.test_torch_control_plane import ROOT, port_module, port_tests
+from tests.test_torch_control_plane import (
+    ROOT,
+    departed,
+    port_module,
+    port_tests,
+    unmirrored,
+)
 
 SUBSTITUTIONS = (
     ('_read("config", "manifests", "controller.yaml")',
@@ -46,10 +52,8 @@ DEPARTURES = {
     ),
 }
 
-_tests = port_tests(port_module("test_deploy_surface.py",
-                                substitutions=SUBSTITUTIONS))
-assert set(DEPARTURES) <= set(_tests)
-globals().update({k: v for k, v in _tests.items() if k not in DEPARTURES})
+globals().update(departed(port_tests(port_module(
+    "test_deploy_surface.py", substitutions=SUBSTITUTIONS)), DEPARTURES))
 
 DOCKERFILE = ROOT / "docker" / "Dockerfile.torch"
 
@@ -70,8 +74,7 @@ def _instructions(stage: str) -> list[str]:
 
 
 def test_every_departure_has_its_mirror():
-    for name, (reason, mirror) in DEPARTURES.items():
-        assert reason and mirror in globals(), name
+    assert unmirrored(DEPARTURES, globals()) == []
 
 
 def test_port_dockerfile_requirements_are_the_port_s():

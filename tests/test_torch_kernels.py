@@ -782,8 +782,9 @@ def test_peer_gather_split_grid_matches_plain_on_the_card():
 @pytest.mark.cuda
 def test_collectives_across_cards():
     """The host's collectives over real peers: K4 reading other cards'
-    buffers through peer access, the all-reduce and ring across every
-    card (and a list that repeats cards), and both ICI probes."""
+    buffers through peer access, the all-reduce (chained rounds too) and
+    ring across every card (and a list that repeats cards), both ICI
+    probes and the battery, fused and not."""
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
         pytest.skip("needs two or more CUDA devices")
     from k8s_operator_libs_tpu_torch.health import probes
@@ -821,6 +822,15 @@ def test_collectives_across_cards():
             for out, d in zip(outs, members):
                 assert out.device == d
                 same(out, want)
+            # Chained rounds, each on the last one's outputs: past the
+            # plan's graphs, each round repoints a graph's nodes on every
+            # card.
+            for _ in range(3):
+                want = torch.empty(elems)
+                peer_reduce_plain(want, [o.cpu() for o in outs], 0, float(n))
+                outs = all_reduce(outs, float(n))
+                for out in outs:
+                    same(out, want)
             ring = ring_shift(shards)
             for j in range(n):
                 same(ring[j], host[j - 1])

@@ -2,13 +2,11 @@
 concurrency stress tier).
 
 ``port_module`` runs the file's source with the package prefix rewritten
-on the port's fixtures.  The file's autouse fixture, which switches
-threads every 10 µs for each case, is taken with its tests, so the port's
-cases run under it as the reference's do.
+on the port's fixtures.  ``port_tests`` takes the file's autouse fixture,
+which switches threads every 10 µs for each case, with its tests, so the
+port's cases run under it as the reference's do.
 """
 
 from tests.test_torch_control_plane import port_module, port_tests
 
-_race = port_module("test_race.py")
-aggressive_gil_switching = _race.aggressive_gil_switching
-globals().update(port_tests(_race))
+globals().update(port_tests(port_module("test_race.py")))
