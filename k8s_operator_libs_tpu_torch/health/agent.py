@@ -26,6 +26,7 @@ from k8s_operator_libs_tpu_torch.consts import get_logger
 from k8s_operator_libs_tpu_torch.health.probes import run_host_probe
 from k8s_operator_libs_tpu_torch.health.report import HealthReport
 from k8s_operator_libs_tpu_torch.keys import driver_keys, keys_from_env
+from k8s_operator_libs_tpu_torch.layers import layer_span, spanned
 from k8s_operator_libs_tpu_torch.upgrade.util import UpgradeKeys
 
 logger = get_logger(__name__)
@@ -117,7 +118,11 @@ class HealthAgent:
             list(dcn_expected_groups) if dcn_expected_groups else None
         )
         self.fused = fused
+        # The request of the last probe's layer spans, which its publish
+        # joins (set only while they are on).
+        self._request: Optional[int] = None
 
+    @spanned("agent.probe", opens="_request")
     def probe_once(self) -> HealthReport:
         kwargs = {} if self.max_iters is None else {"max_iters": self.max_iters}
         checks = run_host_probe(
@@ -141,19 +146,22 @@ class HealthAgent:
             if check.name == "device_enumeration":
                 devs = int(check.metrics.get("devices", 0.0))
                 break
-        return HealthReport(
-            node_name=self.node_name,
-            driver_revision=self.driver_revision,
-            checks=checks,
-            timestamp=time.time(),
-            visible_devices=devs,
-            slice_wide=self.slice_wide,
-        )
+        with layer_span("agent.report"):
+            return HealthReport(
+                node_name=self.node_name,
+                driver_revision=self.driver_revision,
+                checks=checks,
+                timestamp=time.time(),
+                visible_devices=devs,
+                slice_wide=self.slice_wide,
+            )
 
+    @spanned("agent.publish", joins="_request")
     def publish(self, report: HealthReport) -> None:
+        with layer_span("agent.report"):
+            payload = report.to_json()
         self.client.patch_node_annotations(
-            self.node_name,
-            {self.keys.health_report_annotation: report.to_json()},
+            self.node_name, {self.keys.health_report_annotation: payload},
         )
 
     def run_once(self) -> HealthReport:

@@ -53,6 +53,7 @@ from k8s_operator_libs_tpu_torch.kernels import (
     stream_increment_verify_,
     verify_stats,
 )
+from k8s_operator_libs_tpu_torch.layers import count, layer_span
 
 # Bump when the battery's math or output layout changes.
 BATTERY_VERSION = 1
@@ -162,7 +163,8 @@ def _run(key: BatteryKey, inputs: list) -> list[list[float]]:
     """Enqueue every member's body, then the collectives, and read back
     each member's row: the six body scalars, its first all-reduced
     element and its ring value."""
-    with exact_bf16_matmul():
+    count("fused.batteries")
+    with layer_span("fused.enqueue"), exact_bf16_matmul():
         stats = [_battery_body(a, b, x) for a, b, x, _, _ in inputs]
     s = [inp[3] for inp in inputs]
     ring = [inp[4] for inp in inputs]
@@ -170,14 +172,16 @@ def _run(key: BatteryKey, inputs: list) -> list[list[float]]:
     if not key.skip_ici and n_dev >= 2:
         # Chained rounds s ← all_reduce(s) / n: (n+1)/2 after the first,
         # a fixed point after; every value is exact in fp32.
-        for _ in range(PSUM_ROUNDS):
-            s = collectives.all_reduce(s, divisor=float(n_dev))
-        ring = collectives.ring_shift(ring)
+        with layer_span("fused.collectives"):
+            for _ in range(PSUM_ROUNDS):
+                s = collectives.all_reduce(s, divisor=float(n_dev))
+            ring = collectives.ring_shift(ring)
     # One readback per member is the synchronisation.
-    return [
-        torch.cat([st, si[:1], ri]).tolist()
-        for st, si, ri in zip(stats, s, ring)
-    ]
+    with layer_span("fused.readback"):
+        return [
+            torch.cat([st, si[:1], ri]).tolist()
+            for st, si, ri in zip(stats, s, ring)
+        ]
 
 
 def _prepare(
@@ -216,20 +220,34 @@ def run_fused_battery(
     any infrastructure fault; the caller falls back to the unfused
     battery."""
     devs = list(devices)
-    n_dev = len(devs)
     if matmul_n & (matmul_n - 1):
         raise ValueError(
             f"fused battery needs power-of-two matmul_n, got {matmul_n}"
         )
     key = battery_key(devs, matmul_n, hbm_mib, allreduce_elems, skip_ici)
-    compile_ms = _prepare(key, devs)
-
-    inputs = [_build_inputs(key, d, i) for i, d in enumerate(devs)]
+    with layer_span("fused.prepare"):
+        compile_ms = _prepare(key, devs)
+    with layer_span("fused.inputs"):
+        inputs = [_build_inputs(key, d, i) for i, d in enumerate(devs)]
+    # The battery's one timing: its layer spans split this interval.
     t0 = time.perf_counter()
     rows = _run(key, inputs)
     execute_ms = (time.perf_counter() - t0) * 1e3
     with _LOCK:
         _STATS["last_execute_ms"] = execute_ms
+    with layer_span("fused.checks"):
+        return _checks(key, rows, compile_ms, execute_ms)
+
+
+def _checks(
+    key: BatteryKey,
+    rows: list,
+    compile_ms: Optional[float],
+    execute_ms: float,
+) -> list[CheckResult]:
+    """The battery's CheckResults from its members' rows."""
+    n_dev = key.device_count
+    matmul_n, hbm_mib, skip_ici = key.matmul_n, key.hbm_mib, key.skip_ici
     mm_rows = [(i, r[2]) for i, r in enumerate(rows)]
     hbm_min_rows = [(i, r[3]) for i, r in enumerate(rows)]
     hbm_max_rows = [(i, r[4]) for i, r in enumerate(rows)]

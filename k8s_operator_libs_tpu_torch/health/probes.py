@@ -56,6 +56,7 @@ from k8s_operator_libs_tpu_torch.kernels import (
     stream_increment_,
     verify_stats,
 )
+from k8s_operator_libs_tpu_torch.layers import layer_span
 
 logger = get_logger(__name__)
 
@@ -869,7 +870,8 @@ def run_host_probe(
             )
         )
         return results
-    add(device_inventory(devs, expected_devices))
+    with layer_span("battery.inventory"):
+        add(device_inventory(devs, expected_devices))
     if not devs:
         return results
     if fused is None:
@@ -879,13 +881,14 @@ def run_host_probe(
         from k8s_operator_libs_tpu_torch.health import fused as fused_mod
 
         try:
-            fused_checks = fused_mod.run_fused_battery(
-                devs,
-                matmul_n=matmul_n,
-                hbm_mib=hbm_mib,
-                allreduce_elems=allreduce_elems,
-                skip_ici=skip_ici,
-            )
+            with layer_span("battery.fused"):
+                fused_checks = fused_mod.run_fused_battery(
+                    devs,
+                    matmul_n=matmul_n,
+                    hbm_mib=hbm_mib,
+                    allreduce_elems=allreduce_elems,
+                    skip_ici=skip_ici,
+                )
         except Exception as e:  # noqa: BLE001 — unfused is the fallback
             fused_mod.record_fallback()
             logger.warning(
@@ -946,7 +949,8 @@ def run_host_probe(
             check.metrics.update(parity)
             add(check)
     if not skip_ici and deep:
-        add(ici_ring_attention_probe(devs))
+        with layer_span("battery.deep"):
+            add(ici_ring_attention_probe(devs))
     if dcn_peers:
         add(dcn_reachability_probe(dcn_peers))
     if dcn_expected_groups:

@@ -47,6 +47,7 @@ from k8s_operator_libs_tpu_torch.health.report import (
     HealthReport,
     measured_node_stats,
 )
+from k8s_operator_libs_tpu_torch.layers import layer_span, spanned
 from k8s_operator_libs_tpu_torch.upgrade.util import UpgradeKeys
 from k8s_operator_libs_tpu_torch.upgrade.validation_manager import ProbeResult
 
@@ -263,6 +264,7 @@ class NodeReportProber:
                 )
         return None
 
+    @spanned("prober.probe")
     def probe(self, group) -> ProbeResult:
         key = self.keys.health_report_annotation
         start_key = self.keys.validation_start_time_annotation
@@ -279,23 +281,26 @@ class NodeReportProber:
                     telemetry=telemetry or None,
                 )
             try:
-                report = HealthReport.from_json(raw)
+                with layer_span("prober.parse"):
+                    report = HealthReport.from_json(raw)
             except ValueError as e:
                 return ProbeResult(
                     False,
                     f"node {node.name}: {e}",
                     telemetry=telemetry or None,
                 )
-            stats = measured_node_stats(report.checks)
-            if stats:
-                telemetry[node.name] = stats
-            raw_start = node.annotations.get(start_key, "")
-            ref = min(now, float(raw_start)) if raw_start.isdigit() else now
-            reason = self._check_report(
-                report, group, required_rev, ref,
-                self._hbm_floor(group, node), self._ici_floor(group, node),
-                node,
-            )
+            with layer_span("prober.judge"):
+                stats = measured_node_stats(report.checks)
+                if stats:
+                    telemetry[node.name] = stats
+                raw_start = node.annotations.get(start_key, "")
+                ref = (min(now, float(raw_start)) if raw_start.isdigit()
+                       else now)
+                reason = self._check_report(
+                    report, group, required_rev, ref,
+                    self._hbm_floor(group, node),
+                    self._ici_floor(group, node), node,
+                )
             if reason is not None:
                 return ProbeResult(
                     False,

@@ -50,6 +50,7 @@ from k8s_operator_libs_tpu_torch.k8s.selectors import (
     matches_labels,
     matches_selector,
 )
+from k8s_operator_libs_tpu_torch.layers import layer_span
 
 
 class NotFoundError(KeyError):
@@ -474,18 +475,20 @@ class FakeCluster:
             sub.close()
 
     def _call(self, verb: str) -> None:
-        self.stats[verb] += 1
-        if self.api_latency_s > 0:
-            time.sleep(self.api_latency_s)
-        if self.fault_injector is not None:
-            self.fault_injector(verb)
-        if self.fault_schedule is not None:
-            self.fault_schedule.raise_for(verb)
-            # Data-plane faults (node NotReady/flap/delete, stuck pods,
-            # crash loops) mutate CLUSTER STATE rather than failing this
-            # call; API traffic is their clock, so both tiers (fake verbs
-            # and wire requests routed through this store) tick them.
-            self._apply_data_plane_faults(verb)
+        with layer_span("k8s", verb):
+            self.stats[verb] += 1
+            if self.api_latency_s > 0:
+                time.sleep(self.api_latency_s)
+            if self.fault_injector is not None:
+                self.fault_injector(verb)
+            if self.fault_schedule is not None:
+                self.fault_schedule.raise_for(verb)
+                # Data-plane faults (node NotReady/flap/delete, stuck
+                # pods, crash loops) mutate CLUSTER STATE rather than
+                # failing this call; API traffic is their clock, so both
+                # tiers (fake verbs and wire requests routed through this
+                # store) tick them.
+                self._apply_data_plane_faults(verb)
 
     def on_pod_deleted(self, hook: Callable[[Pod], None]) -> None:
         """Register a hook fired after a pod is deleted/evicted (lets tests

@@ -29,6 +29,7 @@ from k8s_operator_libs_tpu_torch.k8s.client import (
 )
 from k8s_operator_libs_tpu_torch.k8s.interface import KubeClient
 from k8s_operator_libs_tpu_torch.k8s.objects import Node, Pod
+from k8s_operator_libs_tpu_torch.layers import count, layer_span, spanned
 
 
 class DrainError(RuntimeError):
@@ -403,6 +404,7 @@ class DrainHelper:
                     )
                     break
                 issued.add(key)
+                count("drain.evictions")
                 pdb_blocked.discard(key)
                 if self.on_pod_deleted is not None:
                     self.on_pod_deleted(by_key[key], True)
@@ -443,8 +445,10 @@ class DrainHelper:
             sleep_s = max(self.poll_interval_s, backoff_s)
             if deadline is not None:
                 sleep_s = min(sleep_s, max(0.0, deadline - time.monotonic()))
-            time.sleep(sleep_s)
+            with layer_span("drain.poll_sleep"):
+                time.sleep(sleep_s)
 
+    @spanned("drain.node")
     def run_node_drain(self, node_name: str) -> None:
         """Full drain: select pods, error if any fatal filter fired, evict.
 

@@ -10,9 +10,11 @@
 Each wrapper checks its input, then takes the plain PyTorch version only
 for a tensor on the CPU; for a CUDA tensor it launches the kernel on the
 current stream or raises.  ``<wrapper>.launches`` counts kernel launches,
-so a run can show that its path went through the kernels.  The kernel
-sources (``csrc/battery_kernels.cu``) say which XLA programs they replace
-and what bounds them.
+so a run can show that its path went through the kernels; with layer
+spans on, the counters ``k1.launches``, ``k1.bytes``, ``k2.launches``
+and ``k2.bytes`` count them and the bytes they read and write.  The
+kernel sources (``csrc/battery_kernels.cu``) say which XLA programs they
+replace and what bounds them.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from k8s_operator_libs_tpu_torch.kernels.build import check, load_library
+from k8s_operator_libs_tpu_torch.layers import count
 
 # 8 blocks of 256 threads (the library's block size) fill an SM's 2048
 # thread slots; K2's grid-stride loops cover the rest of the array.
@@ -85,7 +88,14 @@ def stream_increment_(x: torch.Tensor) -> torch.Tensor:
     )
     check(lib, code, "stream_increment_")
     stream_increment_.launches += 1
+    _count_k1(n)
     return x
+
+
+def _count_k1(n: int) -> None:
+    """One K1 pass over ``n`` fp32: read once, written once."""
+    count("k1.launches")
+    count("k1.bytes", 8 * n)
 
 
 stream_increment_.launches = 0
@@ -124,6 +134,7 @@ def stream_increment_verify_(x: torch.Tensor, center: float) -> torch.Tensor:
     check(lib, code, "stream_increment_verify_")
     stream_increment_.launches += 1
     stream_increment_verify_.launches += 1
+    _count_k1(n)
     return scratch[:3]
 
 
@@ -160,6 +171,8 @@ def verify_stats(x: torch.Tensor, center: float) -> torch.Tensor:
     )
     check(lib, code, "verify_stats")
     verify_stats.launches += 1
+    count("k2.launches")
+    count("k2.bytes", x.numel() * x.element_size())
     return out
 
 

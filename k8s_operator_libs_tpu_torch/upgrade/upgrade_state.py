@@ -51,6 +51,7 @@ from k8s_operator_libs_tpu_torch.k8s.drain import (
 from k8s_operator_libs_tpu_torch.k8s.interface import KubeClient
 from k8s_operator_libs_tpu_torch.k8s.objects import DaemonSet, Node, Pod, deep_copy
 from k8s_operator_libs_tpu_torch.k8s.writeplan import WritePlan
+from k8s_operator_libs_tpu_torch.layers import count, spanned
 from k8s_operator_libs_tpu_torch.topology.slices import slice_info_for_node
 from k8s_operator_libs_tpu_torch.upgrade.consts import (
     ELASTIC_RESPONSE_ACCEPT,
@@ -774,6 +775,7 @@ class ClusterUpgradeStateManager:
 
     # -- BuildState (upgrade_state.go:214-279) -------------------------------
 
+    @spanned("engine.build_state", opens="_layer_pass")
     def build_state(
         self,
         namespace: str,
@@ -793,6 +795,7 @@ class ClusterUpgradeStateManager:
         O(pool), not O(fleet).  The DaemonSet completeness guard is
         fleet-wide by definition and only applies to unscoped builds."""
         logger.info("building state")
+        count("engine.passes")
         # Informer fast path: when the client exposes a fresh coherent
         # cache snapshot (CachedKubeClient), resolve daemonsets, pods,
         # AND every pod's node from the SAME in-memory view — one lock
@@ -1006,6 +1009,7 @@ class ClusterUpgradeStateManager:
 
     # -- ApplyState (upgrade_state.go:364-484) -------------------------------
 
+    @spanned("engine.apply_state", joins="_layer_pass")
     def apply_state(
         self,
         current_state: Optional[ClusterUpgradeState],
@@ -1262,6 +1266,7 @@ class ClusterUpgradeStateManager:
 
     # -- processors ----------------------------------------------------------
 
+    @spanned("engine.done_or_unknown")
     def process_done_or_unknown_groups(
         self,
         state: ClusterUpgradeState,
@@ -1336,6 +1341,7 @@ class ClusterUpgradeStateManager:
                 in_flight.add(ring)
         return in_flight
 
+    @spanned("engine.upgrade_required")
     def process_upgrade_required_groups(
         self,
         state: ClusterUpgradeState,
@@ -1540,6 +1546,7 @@ class ClusterUpgradeStateManager:
         if idle:
             stats["budget_idle_ticks"] = stats.get("budget_idle_ticks", 0) + 1
 
+    @spanned("engine.cordon_required")
     def process_cordon_required_groups(self, state: ClusterUpgradeState) -> None:
         """Cordon all hosts, then advance (upgrade_state.go:635-654)."""
         for group in state.groups_in(UpgradeState.CORDON_REQUIRED):
@@ -1548,6 +1555,7 @@ class ClusterUpgradeStateManager:
                 group.nodes, UpgradeState.WAIT_FOR_JOBS_REQUIRED
             )
 
+    @spanned("engine.wait_for_jobs_required")
     def process_wait_for_jobs_required_groups(
         self, state: ClusterUpgradeState, wait_spec
     ) -> None:
@@ -1568,6 +1576,7 @@ class ClusterUpgradeStateManager:
             PodManagerConfig(groups=groups, wait_for_completion_spec=wait_spec)
         )
 
+    @spanned("engine.pod_deletion_required")
     def process_pod_deletion_required_groups(
         self, state: ClusterUpgradeState, deletion_spec, drain_enabled: bool
     ) -> None:
@@ -1589,6 +1598,7 @@ class ClusterUpgradeStateManager:
             )
         )
 
+    @spanned("engine.drain")
     def process_drain_groups(self, state: ClusterUpgradeState, drain_spec) -> None:
         """(upgrade_state.go:731-760)"""
         groups = state.groups_in(UpgradeState.DRAIN_REQUIRED)
@@ -1605,6 +1615,7 @@ class ClusterUpgradeStateManager:
             DrainConfiguration(spec=drain_spec, groups=groups)
         )
 
+    @spanned("engine.pod_restart")
     def process_pod_restart_groups(
         self,
         state: ClusterUpgradeState,
@@ -1891,6 +1902,7 @@ class ClusterUpgradeStateManager:
             group, validation_active, pipeline, all_ready
         )
 
+    @spanned("engine.upgrade_failed")
     def process_upgrade_failed_groups(
         self,
         state: ClusterUpgradeState,
@@ -2018,6 +2030,7 @@ class ClusterUpgradeStateManager:
             self._recovery_inflight.remove(group.id)
             raise
 
+    @spanned("engine.validation_required")
     def process_validation_required_groups(
         self, state: ClusterUpgradeState, validation_active: Optional[bool] = None
     ) -> None:
@@ -2033,6 +2046,7 @@ class ClusterUpgradeStateManager:
                 continue
             self._update_group_to_uncordon_or_done(group)
 
+    @spanned("engine.uncordon_required")
     def process_uncordon_required_groups(
         self, state: ClusterUpgradeState
     ) -> None:
@@ -2176,6 +2190,7 @@ class ClusterUpgradeStateManager:
             self.budget_ledger.release(group.id)
         return True
 
+    @spanned("engine.negotiation")
     def process_negotiation_groups(
         self,
         state: ClusterUpgradeState,
@@ -2279,6 +2294,7 @@ class ClusterUpgradeStateManager:
                 outcome,
             )
 
+    @spanned("engine.rejoin_resize")
     def process_rejoin_resize_groups(
         self,
         state: ClusterUpgradeState,
@@ -2428,6 +2444,7 @@ class ClusterUpgradeStateManager:
                 if member in members:
                     members.remove(member)
 
+    @spanned("engine.preemption")
     def process_preemption(
         self,
         state: ClusterUpgradeState,
@@ -2520,6 +2537,7 @@ class ClusterUpgradeStateManager:
                     "group %s returned from preemption; resuming", group.id
                 )
 
+    @spanned("engine.maintenance_windows")
     def process_maintenance_windows(
         self,
         state: ClusterUpgradeState,
@@ -2711,6 +2729,7 @@ class ClusterUpgradeStateManager:
                 stamped, key, "null"
             )
 
+    @spanned("engine.quarantine")
     def process_quarantine(
         self,
         state: ClusterUpgradeState,
@@ -3436,6 +3455,7 @@ class ClusterUpgradeStateManager:
 
     # -- test/bench convenience ---------------------------------------------
 
+    @spanned("engine.async_wait", joins="_layer_pass")
     def wait_for_async_work(self, timeout_s: float = 30.0) -> bool:
         """Join outstanding drain/eviction workers (including the
         validation manager's rollback-eviction workers) and any in-flight

@@ -49,6 +49,7 @@ from k8s_operator_libs_tpu_torch.kernels.collectives import (
     gather_from_members,
     reduce_from_members,
 )
+from k8s_operator_libs_tpu_torch.layers import layer_span
 
 MASKED = -1e30
 ADAM_B1 = 0.9
@@ -692,11 +693,15 @@ class CanaryRunner:
         return self._shard_batch(torch.from_numpy(batch).to(self.device))
 
     def run_step(self) -> float:
-        batch = self._make_batch()
-        self.params, self.opt_state, loss = self._step(
-            self.params, self.opt_state, batch
-        )
-        loss = float(loss)
+        with layer_span("canary.step", root=True):
+            with layer_span("canary.batch"):
+                batch = self._make_batch()
+            with layer_span("canary.enqueue"):
+                self.params, self.opt_state, loss = self._step(
+                    self.params, self.opt_state, batch
+                )
+            with layer_span("canary.sync"):
+                loss = float(loss)
         self.step_times.append(time.monotonic())
         self.losses.append(loss)
         return loss

@@ -39,6 +39,7 @@ from k8s_operator_libs_tpu_torch.kernels import (
     block_attention_merge_,
 )
 from k8s_operator_libs_tpu_torch.kernels.attention import NEG_INF
+from k8s_operator_libs_tpu_torch.layers import count, layer_span, spanned
 
 # Largest global sequence checked against the O(S²) full reference.
 MAX_VERIFIED_SEQ = 4096
@@ -58,6 +59,7 @@ def _normalise(num, den, dtype):
     return (num / den[..., None]).to(dtype)
 
 
+@spanned("deep.ring")
 def ring_attention(
     q_shards: Sequence[torch.Tensor],
     k_shards: Sequence[torch.Tensor],
@@ -77,6 +79,7 @@ def ring_attention(
             f"want one q, k and v shard per device ({n}), got "
             f"{len(q_shards)}, {len(k_shards)}, {len(v_shards)}"
         )
+    count("deep.ring_steps", n * n)
     B, S, H, D = q_shards[0].shape
     # Fresh accumulators each call: the fused step updates them in place.
     accs = [
@@ -172,21 +175,23 @@ def ring_attention_soak(
                 "link_gbps": 0.0, "detail": "single device; no ring"}
     fn, shard = make_ring_attention(devs)
     S = seq_per_device * n
-    rng = np.random.default_rng(0)
-    shape = (batch, S, heads, head_dim)
-    host = [
-        torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
-        for _ in range(3)
-    ]
-    q, k, v = (shard(x) for x in host)
+    with layer_span("deep.inputs"):
+        rng = np.random.default_rng(0)
+        shape = (batch, S, heads, head_dim)
+        host = [
+            torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            for _ in range(3)
+        ]
+        q, k, v = (shard(x) for x in host)
 
     out = fn(q, k, v)
     _synchronize(devs)
     # One process addresses every member, so the O(S²) reference is
     # feasible wherever the sequence is bounded.
     if S <= MAX_VERIFIED_SEQ:
-        ref = full_attention_reference(*(x.to(devs[0]) for x in host))
-        err = _max_err(out, ref)
+        with layer_span("deep.reference"):
+            ref = full_attention_reference(*(x.to(devs[0]) for x in host))
+            err = _max_err(out, ref)
         ok = bool(err < RING_ATOL)
     else:
         ok = all(bool(torch.isfinite(o).all()) for o in out)

@@ -480,6 +480,112 @@ OWN_COPIES: dict[str, list[tuple[str, str]]] = {
 }
 
 
+
+def _spanned(method: str, span: str, how: str = "") -> tuple[str, str]:
+    """The layer-span site that decorates ``method`` with ``span``."""
+    return (f"\n    def {method}(",
+            f'\n    @spanned("{span}"{how})\n    def {method}(')
+
+
+_ENGINE_PROCESSORS = (
+    "done_or_unknown_groups", "upgrade_required_groups",
+    "cordon_required_groups", "wait_for_jobs_required_groups",
+    "pod_deletion_required_groups", "drain_groups", "pod_restart_groups",
+    "upgrade_failed_groups", "validation_required_groups",
+    "uncordon_required_groups", "negotiation_groups", "rejoin_resize_groups",
+    "preemption", "maintenance_windows", "quarantine",
+)
+
+# The port's layer spans (``layers.py``, a module of the port's own) at
+# the engine's calls: each copy below is the reference's code with these
+# (reference snippet, port snippet) sites added, and nothing else.
+LAYER_SITES: dict[str, list[tuple[str, str]]] = {
+    "k8s/client.py": [
+        (
+            f"from {_P}.k8s.selectors import (\n"
+            "    matches_labels,\n"
+            "    matches_selector,\n"
+            ")\n",
+            f"from {_P}.k8s.selectors import (\n"
+            "    matches_labels,\n"
+            "    matches_selector,\n"
+            ")\n"
+            f"from {_P}.layers import layer_span\n",
+        ),
+        (
+            "    def _call(self, verb: str) -> None:\n"
+            "        self.stats[verb] += 1\n"
+            "        if self.api_latency_s > 0:\n"
+            "            time.sleep(self.api_latency_s)\n"
+            "        if self.fault_injector is not None:\n"
+            "            self.fault_injector(verb)\n"
+            "        if self.fault_schedule is not None:\n"
+            "            self.fault_schedule.raise_for(verb)\n"
+            "            # Data-plane faults (node NotReady/flap/delete,"
+            " stuck pods,\n"
+            "            # crash loops) mutate CLUSTER"
+            " STATE rather than failing this\n"
+            "            # call; API traffic is their"
+            " clock, so both tiers (fake verbs\n"
+            "            # and wire requests routed through"
+            " this store) tick them.\n"
+            "            self._apply_data_plane_faults(verb)\n",
+            "    def _call(self, verb: str) -> None:\n"
+            '        with layer_span("k8s", verb):\n'
+            "            self.stats[verb] += 1\n"
+            "            if self.api_latency_s > 0:\n"
+            "                time.sleep(self.api_latency_s)\n"
+            "            if self.fault_injector is not None:\n"
+            "                self.fault_injector(verb)\n"
+            "            if self.fault_schedule is not None:\n"
+            "                self.fault_schedule.raise_for(verb)\n"
+            "                self._apply_data_plane_faults(verb)\n",
+        ),
+    ],
+    "k8s/drain.py": [
+        (
+            f"from {_P}.k8s.objects import Node, Pod\n",
+            f"from {_P}.k8s.objects import Node, Pod\n"
+            f"from {_P}.layers import count, layer_span, spanned\n",
+        ),
+        (
+            "                issued.add(key)\n"
+            "                pdb_blocked.discard(key)\n",
+            "                issued.add(key)\n"
+            '                count("drain.evictions")\n'
+            "                pdb_blocked.discard(key)\n",
+        ),
+        (
+            "            time.sleep(sleep_s)\n",
+            '            with layer_span("drain.poll_sleep"):\n'
+            "                time.sleep(sleep_s)\n",
+        ),
+        _spanned("run_node_drain", "drain.node"),
+    ],
+    "upgrade/upgrade_state.py": [
+        (
+            f"from {_P}.k8s.writeplan import WritePlan\n",
+            f"from {_P}.k8s.writeplan import WritePlan\n"
+            f"from {_P}.layers import count, spanned\n",
+        ),
+        _spanned("build_state", "engine.build_state",
+                 ', opens="_layer_pass"'),
+        (
+            '        logger.info("building state")\n',
+            '        logger.info("building state")\n'
+            '        count("engine.passes")\n',
+        ),
+        _spanned("apply_state", "engine.apply_state",
+                 ', joins="_layer_pass"'),
+        _spanned("wait_for_async_work", "engine.async_wait",
+                 ', joins="_layer_pass"'),
+    ] + [
+        _spanned(f"process_{p}", "engine." + p.removesuffix("_groups"))
+        for p in _ENGINE_PROCESSORS
+    ],
+}
+
+
 def _strip_docstrings(source: str) -> ast.Module:
     """``source`` parsed, without its module, class and function
     docstrings."""
@@ -502,11 +608,15 @@ def _code(source: str) -> str:
 
 
 def _reference(module: str) -> str:
-    """The reference's source of ``module`` with the prefix rewritten:
-    the package's, or for the consumer example the repository's
-    ``examples/``."""
+    """The reference's source of ``module`` with the prefix rewritten
+    and its ``LAYER_SITES`` added: the package's, or for the consumer
+    example the repository's ``examples/``."""
     top = ROOT if module.startswith("examples/") else REF
-    return PREFIX.sub(_P, (top / module).read_text())
+    source = PREFIX.sub(_P, (top / module).read_text())
+    for ref_snippet, port_snippet in LAYER_SITES.get(module, ()):
+        assert source.count(ref_snippet) == 1, (module, ref_snippet)
+        source = source.replace(ref_snippet, port_snippet)
+    return source
 
 
 def _substituted(module: str) -> str:
