@@ -19,7 +19,10 @@ in the tests, ``[cuda:0] * 8`` on one card); the ring then runs every
 
 It doubles as the deep health probe's soak (``ici_ring_attention``):
 every member sends and receives one K and one V shard on each of its
-n - 1 rotations.
+n - 1 rotations.  The soak's inputs are a fixed draw (seed 0), so each
+shape is drawn once a process and kept on the host, page-locked where
+the ring runs on CUDA; every soak uploads them afresh, one copy to each
+distinct device.
 
 Numerics: q·k and p·v in bf16 with fp32 accumulation, online-softmax
 merge in fp32; checked against single-device full attention.
@@ -27,6 +30,7 @@ merge in fp32; checked against single-device full attention.
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Optional, Sequence
 
@@ -151,6 +155,21 @@ def make_ring_attention(
     return fn, shard
 
 
+@functools.lru_cache(maxsize=4)
+def _soak_inputs(shape: tuple, pin: bool) -> torch.Tensor:
+    """The soak's q, k and v stacked as one [3, *shape] fp32 host tensor,
+    page-locked when ``pin``: bit-equal to three
+    ``standard_normal(shape).astype(np.float32)`` draws, in that order,
+    of ``np.random.default_rng(0)``.  Nothing writes to it."""
+    count("deep.input_draws")
+    rng = np.random.default_rng(0)
+    host = torch.empty((3, *shape), dtype=torch.float32, pin_memory=pin)
+    for x in host:
+        draw = rng.standard_normal(shape).astype(np.float32)
+        x.copy_(torch.from_numpy(draw))
+    return host
+
+
 def _max_err(out_shards, ref) -> float:
     out = torch.cat([o.to(ref.device) for o in out_shards], dim=1)
     return float((out - ref).abs().max())
@@ -168,21 +187,27 @@ def ring_attention_soak(
     {ok, max_err, latency_ms, moved_bytes, link_gbps, devices,
     global_seq} after verifying round 0 against the single-device
     reference.  ``devices=None`` means every CUDA device."""
-    devs = list(devices) if devices is not None else cuda_devices()
+    devs = [torch.device(d) for d in
+            (devices if devices is not None else cuda_devices())]
     n = len(devs)
     if n < 2:
         return {"ok": True, "latency_ms": 0.0, "moved_bytes": 0,
                 "link_gbps": 0.0, "detail": "single device; no ring"}
-    fn, shard = make_ring_attention(devs)
+    fn, _ = make_ring_attention(devs)
     S = seq_per_device * n
     with layer_span("deep.inputs"):
-        rng = np.random.default_rng(0)
-        shape = (batch, S, heads, head_dim)
-        host = [
-            torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
-            for _ in range(3)
-        ]
-        q, k, v = (shard(x) for x in host)
+        host = _soak_inputs((batch, S, heads, head_dim),
+                            any(d.type == "cuda" for d in devs))
+        # A fresh copy on each distinct device every soak, so nothing on
+        # a device outlives the soak; a member's shard is a view along S
+        # of its device's copy, contiguous already where batch is 1.
+        whole = {d: host.to(d, non_blocking=True, copy=True)
+                 for d in dict.fromkeys(devs)}
+        parts = {d: [x.chunk(n, dim=1) for x in w] for d, w in whole.items()}
+        q, k, v = (
+            [parts[d][i][r].contiguous() for r, d in enumerate(devs)]
+            for i in range(3)
+        )
 
     out = fn(q, k, v)
     _synchronize(devs)
@@ -190,7 +215,7 @@ def ring_attention_soak(
     # feasible wherever the sequence is bounded.
     if S <= MAX_VERIFIED_SEQ:
         with layer_span("deep.reference"):
-            ref = full_attention_reference(*(x.to(devs[0]) for x in host))
+            ref = full_attention_reference(*whole[devs[0]])
             err = _max_err(out, ref)
         ok = bool(err < RING_ATOL)
     else:

@@ -567,6 +567,56 @@ def test_block_attention_merge_matches_plain_version_on_the_card():
 
 
 @pytest.mark.cuda
+def test_deep_probe_soak_keeps_its_inputs_pinned_and_bit_equal(monkeypatch):
+    """The deep probe's soak over ``[cuda:0] * 8``: its inputs, drawn once
+    into page-locked host memory and uploaded each soak, give the output
+    shards, bit for bit, of a soak that draws anew and of the ring fed
+    from a fresh numpy draw through ``shard``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    from k8s_operator_libs_tpu_torch.workloads import ring_attention as tra
+
+    dev = torch.device("cuda", 0)
+    devs = [dev] * 8
+    shape = (1, 128 * 8, 4, 64)
+    outs, ins = [], []
+    real = tra.ring_attention
+
+    def spy(q, k, v, *a, **kw):
+        ins.append((q, k, v))
+        out = real(q, k, v, *a, **kw)
+        outs.append([o.clone() for o in out])
+        return out
+
+    monkeypatch.setattr(tra, "ring_attention", spy)
+
+    def soak():
+        res = tra.ring_attention_soak(devs)
+        assert res["ok"], res
+        torch.cuda.synchronize(dev)
+        return outs[-2]  # the checked ring's output shards
+
+    tra._soak_inputs.cache_clear()
+    soak()
+    kept = soak()
+    host = tra._soak_inputs(shape, True)
+    assert host.is_pinned()
+    assert all(x.device == dev for qkv in ins for xs in qkv for x in xs)
+    tra._soak_inputs.cache_clear()
+    drawn = soak()
+    assert tra._soak_inputs(shape, True) is not host
+    rng = np.random.default_rng(0)
+    fn, shard = tra.make_ring_attention(devs)
+    plain = fn(*(shard(torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(dev))
+        for _ in range(3)))
+    torch.cuda.synchronize(dev)
+    for got in (drawn, plain):
+        for a, b in zip(kept, got):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
 def test_peer_reduce_matches_plain_version_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernels have no CPU mode")

@@ -37,6 +37,7 @@ from jax.sharding import Mesh  # noqa: E402
 
 from k8s_operator_libs_tpu.health import probes as jprobes  # noqa: E402
 from k8s_operator_libs_tpu.workloads import ring_attention as jra  # noqa: E402
+from k8s_operator_libs_tpu_torch import layers  # noqa: E402
 from k8s_operator_libs_tpu_torch.health import probes as tprobes  # noqa: E402
 from k8s_operator_libs_tpu_torch.kernels import (  # noqa: E402
     block_attention,
@@ -44,6 +45,9 @@ from k8s_operator_libs_tpu_torch.kernels import (  # noqa: E402
     block_attention_merge_plain,
     block_attention_plain,
     launch_counts,
+)
+from k8s_operator_libs_tpu_torch.workloads import (  # noqa: E402
+    ring_attention as tra,
 )
 from k8s_operator_libs_tpu_torch.workloads.ring_attention import (  # noqa: E402
     ElasticRingSoak,
@@ -334,6 +338,95 @@ def test_soak_single_device_is_vacuous(cpu_devices):
     )
 
 
+# --- the soak's inputs, drawn once a shape ---------------------------------
+
+SOAK_KW = dict(seq_per_device=16, batch=1, heads=2, head_dim=8)
+
+
+def _ring_inputs(monkeypatch) -> list:
+    """Spy on the ring: each call's q, k and v, whole along S, as numpy."""
+    seen = []
+    real = tra.ring_attention
+
+    def spy(q, k, v, *a, **kw):
+        seen.append([torch.cat(x, dim=1).numpy().copy() for x in (q, k, v)])
+        return real(q, k, v, *a, **kw)
+
+    monkeypatch.setattr(tra, "ring_attention", spy)
+    return seen
+
+
+def _counted(fn):
+    """``fn()``'s result and the layer counters it gave."""
+    layers.take_layers()
+    layers.record_layers(True)
+    try:
+        out = fn()
+    finally:
+        layers.record_layers(False)
+    return out, layers.take_layers()[1]
+
+
+@pytest.mark.parametrize("call", [1, 3])
+def test_soak_inputs_are_the_probes_draw(monkeypatch, call):
+    """The soak's q, k and v are a fresh seed-0 numpy draw of its shape,
+    whether the soak draws them or finds them kept."""
+    tra._soak_inputs.cache_clear()
+    seen = _ring_inputs(monkeypatch)
+    for _ in range(call):
+        ring_attention_soak([CPU] * 8, **SOAK_KW)
+    want = _qkv(0, 1, 16 * 8, 2, 8)
+    # Two ring calls a soak: the checked one and the timed one.
+    assert len(seen) == 2 * call
+    for got in seen[-2:]:
+        for g, w in zip(got, want):
+            assert g.tobytes() == w.tobytes()
+
+
+def test_soak_draws_once_a_shape():
+    tra._soak_inputs.cache_clear()
+
+    def soaks(seq_per_device):
+        kw = dict(SOAK_KW, seq_per_device=seq_per_device)
+        return [ring_attention_soak([CPU] * 4, **kw) for _ in range(2)]
+
+    res, counters = _counted(lambda: soaks(16))
+    assert all(r["ok"] for r in res), res
+    assert counters["deep.input_draws"] == 1
+    assert counters["deep.ring_steps"] == 2 * 2 * 4 * 4
+    _, counters = _counted(lambda: soaks(16))
+    assert "deep.input_draws" not in counters
+    _, counters = _counted(lambda: soaks(32))
+    assert counters["deep.input_draws"] == 1
+
+
+def test_soak_leaves_its_kept_inputs_unchanged():
+    ring_attention_soak([CPU] * 8, **SOAK_KW)
+    kept = tra._soak_inputs((1, 16 * 8, 2, 8), False)
+    before = kept.numpy().tobytes()
+    for _ in range(2):
+        ring_attention_soak([CPU] * 8, **SOAK_KW)
+    assert tra._soak_inputs((1, 16 * 8, 2, 8), False) is kept
+    assert not kept.is_pinned()
+    assert kept.numpy().tobytes() == before
+
+
+@pytest.mark.parametrize("kept", [False, True],
+                         ids=["drawn", "kept"])
+def test_soak_result_matches_jax_whether_drawn_or_kept(cpu_devices, kept):
+    tra._soak_inputs.cache_clear()
+    first = ring_attention_soak([CPU] * 8, **SOAK_KW)
+    got = ring_attention_soak([CPU] * 8, **SOAK_KW) if kept else first
+    want = jra.ring_attention_soak(cpu_devices, **SOAK_KW)
+    assert set(got) == set(want)
+    assert got["ok"], got
+    for key in ("devices", "global_seq", "moved_bytes"):
+        assert got[key] == want[key]
+    # The same inputs through the same kernels: the same error, exactly.
+    assert got["max_err"] == first["max_err"]
+    assert abs(got["max_err"] - want["max_err"]) < RING_VS_JAX_ATOL
+
+
 # --- the deep probe --------------------------------------------------------
 
 
@@ -362,8 +455,6 @@ def test_deep_probe_single_device_vacuous(cpu_devices):
 
 
 def test_deep_probe_fault_fails_the_check(monkeypatch):
-    from k8s_operator_libs_tpu_torch.workloads import ring_attention as tra
-
     def broken(*a, **kw):
         raise RuntimeError("injected")
 
@@ -399,6 +490,24 @@ def test_elastic_ring_resize_numerics():
     assert regrown["devices"] == 8
     for r in (full, shrunk, regrown):
         assert r["max_err"] < REACHED_ATOL
+
+
+def test_elastic_ring_draws_fresh_inputs_every_round(monkeypatch):
+    """The elastic soak keeps drawing from its own generator; it takes
+    nothing from the deep probe's kept inputs."""
+    seen = _ring_inputs(monkeypatch)
+    soak = ElasticRingSoak(
+        [CPU] * 4, n_slices=2, seq_per_device=16, heads=2, head_dim=8,
+        seed=5,
+    )
+    _, counters = _counted(lambda: [soak.run_round() for _ in range(2)])
+    assert "deep.input_draws" not in counters
+    rng = np.random.default_rng(5)
+    for got in seen:
+        for g in got:
+            w = rng.standard_normal((1, 16 * 4, 2, 8)).astype(np.float32)
+            assert g.tobytes() == w.tobytes()
+    assert seen[0][0].tobytes() != seen[1][0].tobytes()
 
 
 def test_elastic_ring_rejects_bad_partitions():
